@@ -9,6 +9,11 @@ import pytest
 from repro.configs.base import ModelConfig
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skipped where none is present")
+
+
 TINY = ModelConfig(
     name="tiny-test", family="dense", num_layers=2, d_model=64,
     num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=128,
