@@ -11,25 +11,37 @@ failure:
              ptxas's register / shared-memory / spill lines.
 3. parity  — each kernel against its plain PyTorch version at the main
              path's shapes (Qwen2.5-3B heads 16/2/128 and SmolLM-360M
-             heads 15/5/64, S_max 8192, ragged lengths, prefill chunks at
-             offsets 0 and > 0, a strided cache view), f32 within 1e-4
-             and bf16 within 2e-2 max abs error.
+             heads 15/5/64, S_max 8192, ragged lengths to 8000, prefill
+             chunks at offsets 0 and > 0; slab: a strided cache view;
+             paged: page 64, shuffled tables in which two rows share
+             pages), f32 within 1e-4 and bf16 within 2e-2 max abs error.
+             The paged kernels are also held against the slab kernels on
+             the same logical rows (0 where the tile order is the same).
 4. timing  — each kernel, its plain version and one library call
              (``scaled_dot_product_attention`` with the equivalent
-             boolean mask on the valid slice, timed only here) with CUDA
-             events over many launches, beside the bound
-             max(flops / 989e12, bytes / 3.35e12) computed from these
-             inputs (keys each row needs, every input byte read once).
+             boolean mask on the valid slice, already gathered for the
+             paged kernels, timed only here) with CUDA events over many
+             launches, beside the bound max(flops / 989e12,
+             bytes / 3.35e12) computed from these inputs (keys each row
+             needs, every input byte read once, block-table entries
+             included).
 5. identity — float32 full-width Qwen2.5-3B cut to 4 layers, served by
-             the engine on a 3-agent react workload; every session's
-             stream must equal the port's isolated greedy oracle.
+             the engine on a 3-agent react workload on the slab layout;
+             every session's stream must equal the port's isolated
+             greedy oracle.
 6. slice   — full-width, full-depth Qwen2.5-3B in bf16 through
              ``repro_torch.launch.serve``'s closed loop (4 agents, react,
-             max_seq 8192); every session must finish with all its
-             tokens and both kernels' launch counts must be > 0.
+             max_seq 8192) on the slab layout; every session must finish
+             with all its tokens, the slab kernels' launch counts must be
+             > 0 and the paged kernels' 0.
 7. profile — the slice engine's own forwards (a K=8 decode megastep, a
              cold chunk, a resume batch): wall time, device time and
              device time by kernel from ``torch.profiler``.
+8-10.      — identity, slice and profile again on the paged layout (page
+             64, radix prefix cache): the slice runs with
+             ``--kv-layout paged``, its paged kernels' launch counts must
+             be > 0 and the slab kernels' 0, and it prints the pool's
+             prefix hits, partial hits, page copies and peak pages.
 
 The last lines are the kernel list, the nvidia-smi line, the kernel JSON
 line and the result JSON line.
@@ -37,12 +49,14 @@ line and the result JSON line.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -52,6 +66,20 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM dense
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SLICE_TOKEN_SCALE = 1.0
+PAGE = 64
+SLAB_KERNELS = ("flash_prefill", "flash_decode")
+PAGED_KERNELS = ("flash_prefill_paged", "flash_decode_paged")
+SOURCES = {
+    "flash_prefill": ("src/repro_torch/kernels/csrc/prefill_attention.cu",
+                      "src/repro/kernels/prefill_attention.py:243"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                     "src/repro/kernels/decode_attention.py:133"),
+    "flash_prefill_paged": (
+        "src/repro_torch/kernels/csrc/prefill_attention.cu",
+        "src/repro/kernels/prefill_attention.py:264"),
+    "flash_decode_paged": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                           "src/repro/kernels/decode_attention.py:82"),
+}
 
 
 def log(*a):
@@ -143,6 +171,75 @@ def phase_parity():
                         assert err <= TOL[dtype], ("flash_prefill", err)
                         worst["flash_prefill"] = max(worst["flash_prefill"],
                                                      err)
+    return worst
+
+
+def shared_tables(rng, lengths, pmax: int, num_pages: int):
+    """Block tables [rows, pmax] over a shuffled arena of ``num_pages``
+    usable pages of PAGE rows (page ``num_pages`` is the scratch page):
+    rows 0 and 1 share their first two pages, every other mapped page is
+    distinct, and entries past a row's length point at the scratch page."""
+    perm = rng.permutation(num_pages)
+    bt = np.full((len(lengths), pmax), num_pages, np.int32)
+    nxt = 0
+    for r, n in enumerate(lengths):
+        need = -(-int(n) // PAGE)
+        bt[r, :need] = perm[nxt:nxt + need]
+        nxt += need
+    bt[1, :2] = bt[0, :2]
+    return torch.tensor(bt, device="cuda")
+
+
+def phase_parity_paged():
+    """The paged kernels vs their plain versions (and vs the slab kernels
+    on the gathered rows); returns the worst error per kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_paged_plain, paged_gather)
+    from repro_torch.kernels.prefill_attention import (
+        prefill_attention_paged_plain)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rng = np.random.default_rng(2)
+    worst = {"flash_prefill_paged": 0.0, "flash_decode_paged": 0.0}
+    S, B = 8192, 6
+    pmax, P = S // PAGE, B * (S // PAGE)
+    lens = [3500, 1000, 1, 37, 8000, 5000]
+    for H, Hk, hd in ((16, 2, 128), (15, 5, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            ka = _rand(gen, (P + 1, PAGE, Hk, hd), dtype)
+            va = _rand(gen, (P + 1, PAGE, Hk, hd), dtype)
+            bt = shared_tables(rng, lens, pmax, P)
+            kg, vg = paged_gather(ka, bt), paged_gather(va, bt)
+            q = _rand(gen, (B, 1, H, hd), dtype)
+            L = _i32(lens)
+            got = ops.flash_decode_paged(q, ka, va, L, bt)
+            err = _max_err(got, decode_attention_paged_plain(q, ka, va, L, bt))
+            vs_slab = _max_err(got, ops.flash_decode(q, kg, vg, L))
+            torch.cuda.synchronize()
+            log(f"[parity] decode_paged {H}/{Hk}/{hd} {str(dtype)[6:]} "
+                f"page={PAGE} lens={lens} max_abs_err={err:.3e} "
+                f"vs_slab_kernel={vs_slab:.3e}")
+            assert err <= TOL[dtype], ("flash_decode_paged", err)
+            worst["flash_decode_paged"] = max(worst["flash_decode_paged"], err)
+            rows = _i32([5, 0, 3])
+            bt_m = bt[rows.long()].contiguous()
+            for Sq in (16, 56, 160, 320):
+                for off in (0, 3000):
+                    qo = _i32([off, off + 17, off // 2])
+                    ln = qo + Sq
+                    qq = _rand(gen, (3, Sq, H, hd), dtype)
+                    out = ops.flash_prefill_paged(qq, ka, va, qo, ln, bt_m)
+                    err = _max_err(out, prefill_attention_paged_plain(
+                        qq, ka, va, qo, ln, bt_m))
+                    vs_slab = _max_err(out, ops.flash_prefill(
+                        qq, kg, vg, qo, ln, slot_idx=rows))
+                    torch.cuda.synchronize()
+                    log(f"[parity] prefill_paged {H}/{Hk}/{hd} "
+                        f"{str(dtype)[6:]} page={PAGE} Sq={Sq} off={off} "
+                        f"max_abs_err={err:.3e} vs_slab_kernel={vs_slab:.3e}")
+                    assert err <= TOL[dtype], ("flash_prefill_paged", err)
+                    worst["flash_prefill_paged"] = max(
+                        worst["flash_prefill_paged"], err)
     return worst
 
 
@@ -248,25 +345,131 @@ def phase_timing():
     return res
 
 
-def phase_identity():
+def phase_timing_paged():
+    """The paged kernels at the slab timing's shapes (bf16, Qwen2.5-3B
+    heads, 6 slots of 8192 rows, page 64, shuffled tables).  Library: SDPA
+    on the valid slice gathered beforehand (the call alone is timed).
+    The bound counts the block-table entries each row reads."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_paged_plain, paged_gather)
+    from repro_torch.kernels.prefill_attention import (
+        prefill_attention_paged_plain)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rng = np.random.default_rng(3)
+    dtype, es = torch.bfloat16, 2
+    H, Hk, hd, S, B = 16, 2, 128, 8192, 6
+    G = H // Hk
+    pmax, P = S // PAGE, B * (S // PAGE)
+    ka = _rand(gen, (P + 1, PAGE, Hk, hd), dtype)
+    va = _rand(gen, (P + 1, PAGE, Hk, hd), dtype)
+    lens = [1, 37, 1000, 3500, 8000, 5000]
+    bt = shared_tables(rng, [S] * B, pmax, P)          # every row mapped
+    res = {}
+
+    q = _rand(gen, (B, 1, H, hd), dtype)
+    L = _i32(lens)
+    Lmax = max(lens)
+    kt = paged_gather(ka, bt)[:, :Lmax].transpose(1, 2).contiguous()
+    vt = paged_gather(va, bt)[:, :Lmax].transpose(1, 2).contiguous()
+    mask = (torch.arange(Lmax, device="cuda")[None, :]
+            < L[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                 enable_gqa=True)
+    n_keys = sum(lens)
+    pages = sum(-(-n // PAGE) for n in lens)
+    bound, by = _bound_ms(4 * n_keys * H * hd,
+                          (2 * n_keys * Hk * hd + 2 * B * H * hd) * es
+                          + 4 * B + 4 * pages, dtype)
+    res["flash_decode_paged"] = dict(
+        ms=_time_ms(lambda: ops.flash_decode_paged(q, ka, va, L, bt)),
+        plain_ms=_time_ms(lambda: decode_attention_paged_plain(q, ka, va, L,
+                                                               bt)),
+        library_ms=_time_ms(lib), bound_ms=bound, bound_by=by,
+        shape=f"B={B} H/Hk/hd={H}/{Hk}/{hd} lens={lens} page={PAGE} bf16")
+
+    Sq, off = 160, 3000
+    qq = _rand(gen, (1, Sq, H, hd), dtype)
+    qo, ln = _i32([off]), _i32([off + Sq])
+    bt_1 = bt[2:3].contiguous()
+    Lk = off + Sq
+    kt = paged_gather(ka, bt_1)[:, :Lk].transpose(1, 2).contiguous()
+    vt = paged_gather(va, bt_1)[:, :Lk].transpose(1, 2).contiguous()
+    q_pos = off + torch.arange(Sq, device="cuda")
+    pmask = (torch.arange(Lk, device="cuda")[None, :]
+             <= q_pos[:, None])[None, None]
+    qt = qq.transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=pmask,
+                                                 enable_gqa=True)
+    pairs = sum(off + i + 1 for i in range(Sq))
+    bound, by = _bound_ms(4 * pairs * H * hd,
+                          (2 * Lk * Hk * hd + 2 * Sq * H * hd) * es + 12
+                          + 4 * -(-Lk // PAGE), dtype)
+    res["flash_prefill_paged"] = dict(
+        ms=_time_ms(lambda: ops.flash_prefill_paged(qq, ka, va, qo, ln, bt_1)),
+        plain_ms=_time_ms(lambda: prefill_attention_paged_plain(
+            qq, ka, va, qo, ln, bt_1)),
+        library_ms=_time_ms(lib), bound_ms=bound, bound_by=by,
+        shape=f"M=1 Sq={Sq} offset={off} H/Hk/hd={H}/{Hk}/{hd} G={G} "
+              f"page={PAGE} bf16")
+    for name, r in res.items():
+        log(f"[timing] {name} {r['shape']}: kernel_ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+
+    M, Sq = 4, 64
+    qq = _rand(gen, (M, Sq, H, hd), dtype)
+    offs = [3100, 3600, 4200, 2900]
+    qo, ln = _i32(offs), _i32([o + Sq for o in offs])
+    bt_m = bt[:M].contiguous()
+    ms = _time_ms(lambda: ops.flash_prefill_paged(qq, ka, va, qo, ln, bt_m))
+    pairs = sum(o + i + 1 for o in offs for i in range(Sq))
+    keys = sum(o + Sq for o in offs)
+    bound, by = _bound_ms(4 * pairs * H * hd,
+                          (2 * keys * Hk * hd + 2 * M * Sq * H * hd) * es
+                          + 4 * sum(-(-(o + Sq) // PAGE) for o in offs), dtype)
+    log(f"[timing] flash_prefill_paged resume M=4 Sq=64 offsets={offs} "
+        f"page={PAGE}: kernel_ms={ms:.4f} bound_ms={bound:.5f} ({by})")
+    return res
+
+
+def free_device_memory() -> None:
+    """Release what a finished phase dropped.  An engine holds reference
+    cycles (its telemetry gauges call back into it), so after ``del`` its
+    cache and weights stay allocated until the cyclic collector runs:
+    collect, then empty the cache so the next phase's peak memory is its
+    own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_identity(paged: bool):
     from repro_torch.configs.base import get_config
     from repro_torch.models import init_params
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.serving.oracle import oracle_streams
     from repro_torch.serving.workload import make_workload
     torch.backends.cuda.matmul.allow_tf32 = False       # full f32 products
-    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=4)
-    log(f"[identity] {cfg.name} full width, depth cut to "
-        f"{cfg.num_layers} of 36 layers, float32")
+    tag = "identity_paged" if paged else "identity"
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=4,
+                              kv_layout="paged" if paged else "slab",
+                              kv_page_size=PAGE)
+    log(f"[{tag}] {cfg.name} full width, depth cut to "
+        f"{cfg.num_layers} of 36 layers, float32, {cfg.kv_layout} layout")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          torch.float32)
     kw = dict(num_slots=5, max_seq=2048)
     ecfg = EngineConfig(cycle_budget=160, granularity=16,
                         control_interval_s=0.1, autotune_chunks=False,
                         record_events=True, **kw)
+    # paged: seed 9's second agent cuts the system prompt shorter than the
+    # first (a radix hit inside a registered prefix), its third longer (a
+    # partial hit)
     mk = lambda: make_workload(3, workload="react",
                                vocab_size=cfg.vocab_size, token_scale=0.25,
-                               seed=3)
+                               seed=9 if paged else 3)
     eng = ServingEngine(cfg, params, "agentserve", ecfg,
                         dtype=torch.float32, device="cuda")
     sessions = mk()
@@ -281,23 +484,33 @@ def phase_identity():
         assert s.output_tokens() == want, (s.session_id, s.output_tokens())
         assert streams[s.session_id] == oracle[s.session_id], \
             (s.session_id, streams[s.session_id], oracle[s.session_id])
-    log(f"[identity] {len(sessions)} sessions, "
+    extra = ""
+    if paged:
+        st = eng.pool.stats
+        extra = (f" | prefix_hits={st['prefix_hits']} "
+                 f"partial_hits={st['prefix_partial_hits']} "
+                 f"page_copies={st['page_copies']}")
+    log(f"[{tag}] {len(sessions)} sessions, "
         f"{sum(len(v) for v in streams.values())} tokens equal the "
-        f"isolated greedy oracle | {rep.row()}")
+        f"isolated greedy oracle | {rep.row()}{extra}")
     del eng, params
-    torch.cuda.empty_cache()
+    free_device_memory()
 
 
-def phase_slice():
+def phase_slice(paged: bool):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    tag = "slice_paged" if paged else "slice"
+    layout = (["--kv-layout", "paged", "--kv-page-size", str(PAGE)]
+              if paged else [])
     args = serve.parse_args([
         "--full", "--arch", "qwen2.5-3b", "--agents", "4",
         "--workload", "react", "--max-seq", "8192",
-        "--token-scale", str(SLICE_TOKEN_SCALE)])
+        "--token-scale", str(SLICE_TOKEN_SCALE)] + layout)
     torch.cuda.reset_peak_memory_stats()
-    log(f"[slice] qwen2.5-3b full width and depth, bfloat16, 4 agents, "
-        f"react, token_scale={SLICE_TOKEN_SCALE}, max_seq=8192")
+    log(f"[{tag}] qwen2.5-3b full width and depth, bfloat16, 4 agents, "
+        f"react, token_scale={SLICE_TOKEN_SCALE}, max_seq=8192, "
+        f"{'paged (page %d, radix)' % PAGE if paged else 'slab'} layout")
     ops.reset_launches()
     t0 = time.perf_counter()
     (eng, sessions, rep), = serve.closed_loop(args)
@@ -308,13 +521,26 @@ def phase_slice():
         want = sum(t.decode_len for t in s.turns)
         assert s.output_tokens() == want, (s.session_id, s.output_tokens(),
                                            want)
-    for name, n in launches.items():
-        assert n > 0, f"{name} was never launched on the main path"
+    own, other = ((PAGED_KERNELS, SLAB_KERNELS) if paged
+                  else (SLAB_KERNELS, PAGED_KERNELS))
+    for name in own:
+        assert launches[name] > 0, f"{name} was never launched on the path"
+    for name in other:
+        assert launches[name] == 0, f"{name} was launched on the {tag} path"
     toks = sum(s.output_tokens() for s in sessions)
     prompt = sum(len(t.prefill_tokens) for s in sessions for t in s.turns)
-    log(f"[slice] {serve.ServingReport.HEADER}")
-    log(f"[slice] {rep.row()}")
-    log(f"[slice] sessions={len(sessions)} output_tokens={toks} "
+    log(f"[{tag}] {serve.ServingReport.HEADER}")
+    log(f"[{tag}] {rep.row()}")
+    if paged:
+        st = eng.pool.stats
+        log(f"[{tag}] pool: prefix_hits={st['prefix_hits']} "
+            f"partial_hits={st['prefix_partial_hits']} "
+            f"misses={st['prefix_misses']} page_copies={st['page_copies']} "
+            f"pages_in_use_peak={eng.pool.pages_peak} of "
+            f"{eng.pool.num_pages} pages of {PAGE} rows "
+            f"evictions={st['evictions']} "
+            f"kv_deferred={eng.hotpath_stats['kv_deferred']}")
+    log(f"[{tag}] sessions={len(sessions)} output_tokens={toks} "
         f"prompt_tokens={prompt} run_wall_s={rep.wall_time_s:.3f} "
         f"output_tok_s={toks / rep.wall_time_s:.2f} "
         f"build_and_run_s={wall:.1f} "
@@ -330,33 +556,42 @@ def _device_us(e):
     return 0.0
 
 
-def phase_profile(eng):
+def phase_profile(eng, paged: bool):
     """Where a slice step's time goes: the slice engine's own forwards,
     timed with the host clock around a synchronize and traced with
-    torch.profiler over the device alone (time by kernel, busy share)."""
+    torch.profiler over the device alone (time by kernel, busy share).
+    Paged: every slot maps its own pages, in order."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import (forward_decode_megastep,
                                     forward_prefill, forward_resume_batch)
     cfg, params, cache = eng.mcfg, eng.params, eng.pool.cache
     B = eng.ecfg.num_slots
     i32 = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
+    tag = "profile_paged" if paged else "profile"
+    bt, one = None, {"slot_idx": i32([0])}
+    if paged:
+        pmax = eng.pool.pages_per_slot
+        bt = torch.arange(B * pmax, dtype=torch.int32,
+                          device="cuda").reshape(B, pmax)
+        one = {"block_tables": bt[:1]}
     work = {
         "decode megastep K=8, 6 lanes at 3500 rows": lambda: (
             forward_decode_megastep(params, cfg, i32([0] * B), cache,
                                     i32([3500] * B),
                                     torch.ones(B, dtype=torch.bool,
-                                               device="cuda"), num_steps=8)),
+                                               device="cuda"), num_steps=8,
+                                    block_tables=bt)),
         "cold chunk 160 tokens at offset 3000": lambda: forward_prefill(
             params, cfg, torch.zeros((1, 160), dtype=torch.int32,
                                      device="cuda"), cache, i32([3000]),
-            slot_idx=i32([0])),
+            **one),
         "resume batch 4 x 64 tokens at 3000-4200": lambda: (
             forward_resume_batch(params, cfg,
                                  torch.zeros((4, 64), dtype=torch.int32,
                                              device="cuda"), cache,
                                  i32([0, 1, 2, 3]),
                                  i32([3100, 3600, 4200, 2900]),
-                                 i32([63] * 4))),
+                                 i32([63] * 4), block_tables=bt)),
     }
     for what, fn in work.items():
         fn()
@@ -371,10 +606,10 @@ def phase_profile(eng):
         ev = [e for e in prof.key_averages() if _device_us(e) > 0]
         busy = sum(_device_us(e) for e in ev) / 1e3
         top = sorted(ev, key=_device_us, reverse=True)[:6]
-        log(f"[profile] {what}: wall_ms={wall * 1e3:.2f} "
+        log(f"[{tag}] {what}: wall_ms={wall * 1e3:.2f} "
             f"device_ms={busy:.2f} device_busy={busy / (wall * 1e3):.1%}")
         for e in top:
-            log(f"[profile]    {_device_us(e) / 1e3:9.3f} ms  "
+            log(f"[{tag}]    {_device_us(e) / 1e3:9.3f} ms  "
                 f"x{e.count:<5d} {e.key[:90]}")
 
 
@@ -382,25 +617,30 @@ def main() -> int:
     name, smi = phase_device()
     phase_build()
     worst = phase_parity()
+    worst.update(phase_parity_paged())
     timing = phase_timing()
-    phase_identity()
-    launches, eng = phase_slice()
-    phase_profile(eng)
-    src = {"flash_prefill": ("src/repro_torch/kernels/csrc/prefill_attention.cu",
-                             "src/repro/kernels/prefill_attention.py:243"),
-           "flash_decode": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                            "src/repro/kernels/decode_attention.py:133")}
+    timing.update(phase_timing_paged())
+    phase_identity(paged=False)
+    launches, eng = phase_slice(paged=False)
+    phase_profile(eng, paged=False)
+    del eng
+    free_device_memory()
+    phase_identity(paged=True)
+    launches_paged, eng = phase_slice(paged=True)
+    phase_profile(eng, paged=True)
+    # each kernel's launches are those of the slice that runs its layout
+    launches.update({k: launches_paged[k] for k in PAGED_KERNELS})
     log("kernels: " + "; ".join(
         f"{k} parity=ok max_abs_err={worst[k]:.3e} launches={launches[k]}"
-        for k in src))
+        for k in SOURCES))
     print(smi)
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src[k][0],
-         "replaces": src[k][1], "launches": launches[k],
+        {"name": k, "route": "cuda", "source": SOURCES[k][0],
+         "replaces": SOURCES[k][1], "launches": launches[k],
          "max_abs_err": worst[k], "ms": timing[k]["ms"],
          "plain_ms": timing[k]["plain_ms"], "bound_ms": timing[k]["bound_ms"],
          "bound_by": timing[k]["bound_by"],
-         "library_ms": timing[k]["library_ms"]} for k in src]}))
+         "library_ms": timing[k]["library_ms"]} for k in SOURCES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -64,8 +64,10 @@ class ModelConfig:
     # CUDA kernels on CUDA tensors and their plain versions on CPU tensors.
     prefill_kernel: str = "xla"
     decode_kernel: str = "xla"
-    # KV-cache layout: only "slab" (per-slot [num_slots, max_seq]
-    # stripes) is ported; "paged" raises in ``serving.kvcache.make_pool``.
+    # KV-cache layout: "slab" (per-slot [num_slots, max_seq] stripes) or
+    # "paged" (a page arena of kv_page_size-row pages addressed through
+    # per-slot block tables, with the radix prefix cache; the CUDA kernels
+    # take power-of-two page sizes, ``kernels.ops.PAGE_SIZES``).
     kv_layout: str = "slab"
     kv_page_size: int = 64
     tie_embeddings: bool = False

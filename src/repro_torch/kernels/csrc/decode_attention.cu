@@ -1,8 +1,11 @@
 // Flash-decode attention for Hopper (sm_90a): one query token per
-// sequence against the slab KV cache.
+// sequence against the slab KV cache, or through a block table against
+// the paged KV arena.
 //
-// Replaces the TPU kernel src/repro/kernels/decode_attention.py
-// `flash_decode_bhgd` (`_decode_kernel`).  Same function: for batch row b
+// Replaces the TPU kernels src/repro/kernels/decode_attention.py
+// `flash_decode_bhgd` (`_decode_kernel`, entry `flash_decode`) and
+// `flash_decode_paged_bhgd` (`_decode_kernel_paged`, entry
+// `flash_decode_paged`).  Same function: for batch row b
 // and KV head h, the G = H / Hk query heads of that KV head attend keys
 // [0, lengths[b]) with an online softmax in f32 (NEG_INF = -1e30 masking,
 // max(l, 1e-30) denominator floor); the output has the input's type.
@@ -20,6 +23,14 @@
 //     shared memory, so each row is read from HBM once per step;
 //   * tiles move as 16-byte vectors, and the next tile is in flight in
 //     registers while the current one is computed.
+// Paged layout: the kernel body is the slab one; only the row
+// addressing differs (the `Rows` functor).  Logical row pos of batch row
+// b lives at physical page bt[b, pos / page], row pos % page, of the
+// [P_phys, page, Hk, hd] arena, so each 16-byte vector finds its own page
+// (one lookup serves K and V) and a 32-key tile may straddle pages of
+// any power-of-two size.  The lookups are part of the next tile's
+// register prefetch, so they overlap the current tile's compute.  Keys
+// are bounded by min(lengths[b], P_max * page).
 // Known limit: one block per (b, h) gives only B * Hk blocks (12 for
 // Qwen2.5-3B at 6 slots), so most of the 132 SMs idle and one SM's
 // bandwidth, not the card's, bounds a long row.  A split-K over live
@@ -73,17 +84,38 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Where logical cache position `pos` of batch row b lives: element
+// offset page(b, pos) * sp + within(pos) * ss (+ head and column).
+// Slab [B, S, Hk, hd]: the page is the slab row and sp its stride.
+// Paged [P_phys, page, Hk, hd]: the page comes from the block table
+// bt [B, pmax], page size 1 << shift.
+struct SlabRows {
+  __device__ __forceinline__ int page(int b, int) const { return b; }
+  __device__ __forceinline__ int within(int pos) const { return pos; }
+};
+struct PagedRows {
+  const int* bt;
+  int pmax, shift;
+  __device__ __forceinline__ int page(int b, int pos) const {
+    return bt[(long long)b * pmax + (pos >> shift)];
+  }
+  __device__ __forceinline__ int within(int pos) const {
+    return pos & ((1 << shift) - 1);
+  }
+};
+
 // grid (Hk, B); block kThreads.  q/out: [B, 1, H, hd] rows addressed by
-// (b * q_sb + head * q_sh); caches: [B, S, Hk, hd] with strides
-// (k_sb, k_ss, k_sh), a unit stride on hd, 16-byte aligned rows.
-template <typename T, int HD>
+// (b * q_sb + head * q_sh); K at addr.page(b, pos) * k_sp +
+// addr.within(pos) * k_ss + h * k_sh (likewise V), a unit stride on hd,
+// 16-byte aligned rows; keys [0, min(lengths[b], cap)).
+template <typename T, int HD, typename Rows>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ lengths,
-                    T* __restrict__ out, int G, int S,
-                    long long q_sb, long long q_sh,
-                    long long k_sb, long long k_ss, long long k_sh,
-                    long long v_sb, long long v_ss, long long v_sh,
+                    T* __restrict__ out, int G, int cap,
+                    long long q_sb, long long q_sh, Rows addr,
+                    long long k_sp, long long k_ss, long long k_sh,
+                    long long v_sp, long long v_ss, long long v_sh,
                     long long o_sb, long long o_sh, float scale) {
   static_assert(kBK == 32 && kThreads == 128 && kMaxG == 8, "thread layout");
   static_assert(kThreads % HD == 0 || HD % kThreads == 0, "thread layout");
@@ -99,7 +131,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int h = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
   const int warp = t / 32, lane = t % 32;
-  const int L = min(lengths[b], S);   // keys past S_max do not exist
+  const int L = min(lengths[b], cap);  // keys past the cache do not exist
   for (int i = t; i < kMaxG * HD; i += kThreads) {
     const int g = i / HD, d = i % HD;
     q_s[g][d] = g < G
@@ -110,8 +142,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float acc[kGPer];
 #pragma unroll
   for (int i = 0; i < kGPer; ++i) acc[i] = 0.f;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
+  const T* kb = k + h * k_sh;
+  const T* vb = v + h * v_sh;
 
   // The next tile is loaded into registers (raw 16-byte vectors) while
   // the current tile is computed, so the loop does not wait on memory.
@@ -122,8 +154,14 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < kVecs; ++u) {
       const int e = (t + u * kThreads) * kV, pos = start + e / HD, d = e % HD;
       const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-      kr[u] = pos < L ? *reinterpret_cast<const uint4*>(kb + pos * k_ss + d) : zero;
-      vr[u] = pos < L ? *reinterpret_cast<const uint4*>(vb + pos * v_ss + d) : zero;
+      if (pos < L) {
+        const long long pg = addr.page(b, pos), w = addr.within(pos);
+        kr[u] = *reinterpret_cast<const uint4*>(kb + pg * k_sp + w * k_ss + d);
+        vr[u] = *reinterpret_cast<const uint4*>(vb + pg * v_sp + w * v_ss + d);
+      } else {
+        kr[u] = zero;
+        vr[u] = zero;
+      }
     }
   };
   load_tile(0);
@@ -201,29 +239,47 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+// st: q (sb, sh), k (sp, ss, sh), v (sp, ss, sh), out (sb, sh), in
+// elements (sp: the slab row stride, or the page stride).
+template <typename T, typename Rows>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths,
-                   void* out, int B, int Hk, int G, int S, int hd,
-                   long long q_sb, long long q_sh, long long k_sb, long long k_ss,
-                   long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-                   long long o_sb, long long o_sh, float scale, cudaStream_t stream) {
+                   void* out, int B, int Hk, int G, int cap, int hd,
+                   const long long* st, Rows addr, float scale, cudaStream_t stream) {
   dim3 grid(Hk, B);
   if (hd == 128)
-    flash_decode_kernel<T, 128><<<grid, kThreads, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, lengths, (T*)out, G, S, q_sb, q_sh,
-        k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh, scale);
+    flash_decode_kernel<T, 128, Rows><<<grid, kThreads, 0, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, lengths, (T*)out, G, cap, st[0], st[1],
+        addr, st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], scale);
   else if (hd == 64)
-    flash_decode_kernel<T, 64><<<grid, kThreads, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, lengths, (T*)out, G, S, q_sb, q_sh,
-        k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh, scale);
+    flash_decode_kernel<T, 64, Rows><<<grid, kThreads, 0, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, lengths, (T*)out, G, cap, st[0], st[1],
+        addr, st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], scale);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
+template <typename Rows>
+int dispatch(const void* q, const void* k, const void* v, const void* lengths,
+             void* out, int dtype, int B, int Hk, int G, int cap, int hd,
+             const long long* st, Rows addr, float scale, void* stream) {
+  if (G < 1 || G > kMaxG) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* lens = (const int*)lengths;
+  if (dtype == 0)
+    return (int)launch<float>(q, k, v, lens, out, B, Hk, G, cap, hd, st, addr, scale,
+                              s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16>(q, k, v, lens, out, B, Hk, G, cap, hd, st, addr,
+                                      scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
+// Slab cache: k/v [B, S, Hk, hd] with strides (sb, ss, sh).
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             const void* lengths, void* out, int dtype, int B,
                             int Hk, int G, int S, int hd, long long q_sb, long long q_sh,
@@ -231,16 +287,26 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             long long v_sb, long long v_ss, long long v_sh,
                             long long o_sb, long long o_sh, float scale,
                             void* stream) {
-  if (G < 1 || G > kMaxG) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int* lens = (const int*)lengths;
-  if (dtype == 0)
-    return (int)launch<float>(q, k, v, lens, out, B, Hk, G, S, hd, q_sb, q_sh, k_sb,
-                              k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh, scale, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, lens, out, B, Hk, G, S, hd, q_sb, q_sh,
-                                      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,
-                                      o_sh, scale, s);
-  return (int)cudaErrorInvalidValue;
+  const long long st[10] = {q_sb, q_sh, k_sb, k_ss, k_sh,
+                            v_sb, v_ss, v_sh, o_sb, o_sh};
+  return dispatch(q, k, v, lengths, out, dtype, B, Hk, G, S, hd, st, SlabRows{},
+                  scale, stream);
+}
+
+// Paged arena: k/v [P_phys, page, Hk, hd] with strides (sp, ss, sh);
+// block_tables [B, pmax] int32 physical page ids; page = 1 << page_shift.
+extern "C" int flash_decode_paged(const void* q, const void* k, const void* v,
+                                  const void* lengths, const void* block_tables,
+                                  void* out, int dtype, int B, int Hk, int G,
+                                  int pmax, int page_shift, int hd, long long q_sb,
+                                  long long q_sh, long long k_sp, long long k_ss,
+                                  long long k_sh, long long v_sp, long long v_ss,
+                                  long long v_sh, long long o_sb, long long o_sh,
+                                  float scale, void* stream) {
+  if (page_shift < 0 || page_shift > 16 || pmax < 1) return (int)cudaErrorInvalidValue;
+  const long long st[10] = {q_sb, q_sh, k_sp, k_ss, k_sh,
+                            v_sp, v_ss, v_sh, o_sb, o_sh};
+  return dispatch(q, k, v, lengths, out, dtype, B, Hk, G, pmax << page_shift, hd, st,
+                  PagedRows{(const int*)block_tables, pmax, page_shift}, scale,
+                  stream);
 }

@@ -1,8 +1,11 @@
-// Cache-aware chunk-prefill attention for Hopper (sm_90a).
+// Cache-aware chunk-prefill attention for Hopper (sm_90a), against the
+// slab KV cache or, through a block table, the paged KV arena.
 //
-// Replaces the TPU kernel src/repro/kernels/prefill_attention.py
-// `flash_prefill_bhsd` (`_prefill_kernel` -> `_kernel_common`, tile bounds
-// from `_tile_bounds`).  Same function: a query chunk q[m, i] at absolute
+// Replaces the TPU kernels src/repro/kernels/prefill_attention.py
+// `flash_prefill_bhsd` (entry `flash_prefill`) and
+// `flash_prefill_paged_bhsd` (entry `flash_prefill_paged`), both built by
+// `_build` (`_kernel_common`, tile bounds from `_tile_bounds`).  Same
+// function: a query chunk q[m, i] at absolute
 // position q_offset[m] + i attends the resident cache rows k_pos with
 //     k_pos < lengths[m],  k_pos <= q_pos,  k_pos > q_pos - window (window > 0)
 // with an online softmax in f32 (NEG_INF = -1e30 masking, max(l, 1e-30)
@@ -33,6 +36,15 @@
 //     whole slot stripes;
 //   * tiles move as 16-byte vectors, all of a tile's loads in flight
 //     before the first is stored to shared memory.
+// Paged layout: the same body with another row addressing (the `Rows`
+// functor): logical row pos of row m lives at physical page
+// bt[m, pos / page], row pos % page, of the [P_phys, page, Hk, hd]
+// arena.  The tile bounds stay logical; each 16-byte vector finds its own
+// page (one lookup serves K and V), so a 32-key tile may straddle pages
+// of any power-of-two size.  The lookups run one tile ahead of the K/V
+// loads that use them, so a table read never sits in front of a tile's
+// loads.  A batched resume passes its M rows of the table (bt[slot_idx])
+// instead of slot_idx.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -73,6 +85,29 @@ template <> struct Vec16<float> {
   }
 };
 
+// Where logical cache position `pos` of cache row `row` lives: element
+// offset page(row, pos) * sp + within(pos) * ss (+ head and column).
+// Slab [B, S, Hk, hd]: the page is the slab row and sp its stride.
+// Paged [P_phys, page, Hk, hd]: the page comes from the block table
+// bt [M, pmax], page size 1 << shift.
+// kTable: the page depends on pos, so the kernel reads it a tile ahead.
+struct SlabRows {
+  static constexpr bool kTable = false;
+  __device__ __forceinline__ int page(int row, int) const { return row; }
+  __device__ __forceinline__ int within(int pos) const { return pos; }
+};
+struct PagedRows {
+  static constexpr bool kTable = true;
+  const int* bt;
+  int pmax, shift;
+  __device__ __forceinline__ int page(int row, int pos) const {
+    return bt[(long long)row * pmax + (pos >> shift)];
+  }
+  __device__ __forceinline__ int within(int pos) const {
+    return pos & ((1 << shift) - 1);
+  }
+};
+
 template <int HD>
 constexpr int smem_floats() {
   return kBM * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBM * (kBK + 1) + 3 * kBM;
@@ -80,18 +115,19 @@ constexpr int smem_floats() {
 
 // grid (query tiles, Hk, M); block kThreads; dynamic shared memory
 // smem_floats<HD>() * 4 bytes.  q/out: [M, Sq, H, hd] with strides
-// (sm, ss, sh); caches: [B, S, Hk, hd] with strides (sb, ss, sh); all
-// with a unit stride on hd, cache rows 16-byte aligned.
-template <typename T, int HD>
+// (sm, ss, sh); K at addr.page(slot, pos) * k_sp + addr.within(pos) * k_ss
+// + h * k_sh (likewise V) with slot = slot_idx[m] (or m); all with a unit
+// stride on hd, cache rows 16-byte aligned; keys below min(lengths[m], cap).
+template <typename T, int HD, typename Rows>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ slot_idx,
                      const int* __restrict__ q_offset,
                      const int* __restrict__ lengths, T* __restrict__ out,
-                     int Sq, int G, int S, int window,
+                     int Sq, int G, int cap, int window,
                      long long q_sm, long long q_ss, long long q_sh,
-                     long long k_sb, long long k_ss, long long k_sh,
-                     long long v_sb, long long v_ss, long long v_sh,
+                     Rows addr, long long k_sp, long long k_ss, long long k_sh,
+                     long long v_sp, long long v_ss, long long v_sh,
                      long long o_sm, long long o_ss, long long o_sh, float scale) {
   static_assert(kThreads == 128 && kBM == 64 && kBK == 32, "thread layout");
   constexpr int kDP = HD / 32;                   // output columns per lane
@@ -111,7 +147,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rows = qpt * G;
   const int slot = slot_idx ? slot_idx[m] : m;
   const int qoff = q_offset[m];
-  const int len = min(lengths[m], S);
+  const int len = min(lengths[m], cap);
   const int i_lo = qt * qpt;
   const int i_hi = min(i_lo + qpt, Sq);          // exclusive
 
@@ -138,23 +174,41 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int a = 0; a < 16; ++a)
 #pragma unroll
     for (int c = 0; c < kDP; ++c) acc[a][c] = 0.f;
-  const T* kb = k + slot * k_sb + h * k_sh;
-  const T* vb = v + slot * v_sb + h * v_sh;
+  // slab: the slot's row offset is folded in here, once
+  const long long row0 = Rows::kTable ? 0 : addr.page(slot, 0);
+  const T* kb = k + h * k_sh + row0 * k_sp;
+  const T* vb = v + h * v_sh + row0 * v_sp;
+  // vector u of thread t holds tile elements (t + u * kThreads) * kV ...;
+  // paged: pg[u] is its page in the tile about to be loaded
+  constexpr int kV = Vec16<T>::N, kVecs = kBK * HD / kV / kThreads;
+  int pg[kVecs];
+  auto pages_of = [&](int k0) {
+    if constexpr (!Rows::kTable) return;
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) {
+      const int pos = k0 + (t + u * kThreads) * kV / HD;
+      pg[u] = pos < len ? addr.page(slot, pos) : 0;
+    }
+  };
+  pages_of(first * kBK);
 
   for (int kt = first; kt <= last; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();                             // previous tile fully used
     // the tile's 16-byte loads are all in flight before any of them is
     // unpacked into shared memory: one memory round trip per tile
-    constexpr int kV = Vec16<T>::N, kVecs = kBK * HD / kV / kThreads;
     uint4 kr[kVecs], vr[kVecs];
 #pragma unroll
     for (int u = 0; u < kVecs; ++u) {
       const int e = (t + u * kThreads) * kV, pos = k0 + e / HD, d = e % HD;
       const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-      kr[u] = pos < len ? *reinterpret_cast<const uint4*>(kb + pos * k_ss + d) : zero;
-      vr[u] = pos < len ? *reinterpret_cast<const uint4*>(vb + pos * v_ss + d) : zero;
+      const long long w = addr.within(pos);
+      const long long ko = Rows::kTable ? pg[u] * k_sp + w * k_ss : pos * k_ss;
+      const long long vo = Rows::kTable ? pg[u] * v_sp + w * v_ss : pos * v_ss;
+      kr[u] = pos < len ? *reinterpret_cast<const uint4*>(kb + ko + d) : zero;
+      vr[u] = pos < len ? *reinterpret_cast<const uint4*>(vb + vo + d) : zero;
     }
+    if (kt < last) pages_of(k0 + kBK);           // next tile's table reads
 #pragma unroll
     for (int u = 0; u < kVecs; ++u) {
       const int e = (t + u * kThreads) * kV, j = e / HD, d = e % HD;
@@ -271,15 +325,15 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, typename Rows>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, const int* slot_idx,
                       const int* q_offset, const int* lengths, void* out, int M,
-                      int Sq, int Hk, int G, int S, int window, const long long* st,
-                      float scale, cudaStream_t stream) {
+                      int Sq, int Hk, int G, int cap, int window, const long long* st,
+                      Rows addr, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_prefill_kernel<T, HD>,
+    cudaError_t e = cudaFuncSetAttribute(flash_prefill_kernel<T, HD, Rows>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          bytes);
     if (e != cudaSuccess) return e;
@@ -287,32 +341,43 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, const int* sl
   }
   const int qpt = kBM / G;
   dim3 grid((Sq + qpt - 1) / qpt, Hk, M);
-  flash_prefill_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
+  flash_prefill_kernel<T, HD, Rows><<<grid, kThreads, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, slot_idx, q_offset, lengths, (T*)out,
-      Sq, G, S, window, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      Sq, G, cap, window, st[0], st[1], st[2], addr, st[3], st[4], st[5], st[6], st[7],
       st[8], st[9], st[10], st[11], scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* slot_idx,
-                   const int* q_offset, const int* lengths, void* out, int M, int Sq,
-                   int Hk, int G, int S, int hd, int window, const long long* st,
-                   float scale, cudaStream_t stream) {
-  if (hd == 128)
-    return launch_hd<T, 128>(q, k, v, slot_idx, q_offset, lengths, out, M, Sq, Hk, G,
-                             S, window, st, scale, stream);
-  if (hd == 64)
-    return launch_hd<T, 64>(q, k, v, slot_idx, q_offset, lengths, out, M, Sq, Hk, G,
-                            S, window, st, scale, stream);
-  return cudaErrorInvalidValue;
+// st: q (sm, ss, sh), k (sp, ss, sh), v (sp, ss, sh), out (sm, ss, sh), in
+// elements (sp: the slab row stride, or the page stride).
+template <typename Rows>
+int dispatch(const void* q, const void* k, const void* v, const void* slot_idx,
+             const void* q_offset, const void* lengths, void* out, int dtype, int M,
+             int Sq, int Hk, int G, int cap, int hd, int window, const long long* st,
+             Rows addr, float scale, void* stream) {
+  if (G < 1 || G > kBM) return (int)cudaErrorInvalidValue;
+  if (M == 0 || Sq == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* si = (const int*)slot_idx;
+  const int* qo = (const int*)q_offset;
+  const int* ln = (const int*)lengths;
+#define REPRO_PREFILL_LAUNCH(T, HD)                                              \
+  return (int)launch_hd<T, HD, Rows>(q, k, v, si, qo, ln, out, M, Sq, Hk, G, cap, \
+                                     window, st, addr, scale, s)
+  if (dtype == 0 && hd == 128) REPRO_PREFILL_LAUNCH(float, 128);
+  if (dtype == 0 && hd == 64) REPRO_PREFILL_LAUNCH(float, 64);
+  if (dtype == 1 && hd == 128) REPRO_PREFILL_LAUNCH(__nv_bfloat16, 128);
+  if (dtype == 1 && hd == 64) REPRO_PREFILL_LAUNCH(__nv_bfloat16, 64);
+#undef REPRO_PREFILL_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  slot_idx may be null (row m reads
-// cache row m).  strides: q (sm, ss, sh), k (sb, ss, sh), v (sb, ss, sh),
-// out (sm, ss, sh), in elements.  Returns the launch's cudaError_t.
+// cache row m).  Slab cache k/v [B, S, Hk, hd].  strides: q (sm, ss, sh),
+// k (sb, ss, sh), v (sb, ss, sh), out (sm, ss, sh), in elements.
+// Returns the launch's cudaError_t.
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              const void* slot_idx, const void* q_offset,
                              const void* lengths, void* out, int dtype, int M,
@@ -322,19 +387,29 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              long long v_sb, long long v_ss, long long v_sh,
                              long long o_sm, long long o_ss, long long o_sh,
                              float scale, void* stream) {
-  if (G < 1 || G > kBM) return (int)cudaErrorInvalidValue;
-  if (M == 0 || Sq == 0) return 0;
   const long long st[12] = {q_sm, q_ss, q_sh, k_sb, k_ss, k_sh,
                             v_sb, v_ss, v_sh, o_sm, o_ss, o_sh};
-  cudaStream_t s = (cudaStream_t)stream;
-  const int* si = (const int*)slot_idx;
-  const int* qo = (const int*)q_offset;
-  const int* ln = (const int*)lengths;
-  if (dtype == 0)
-    return (int)launch<float>(q, k, v, si, qo, ln, out, M, Sq, Hk, G, S, hd, window,
-                              st, scale, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, si, qo, ln, out, M, Sq, Hk, G, S, hd,
-                                      window, st, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(q, k, v, slot_idx, q_offset, lengths, out, dtype, M, Sq, Hk, G, S,
+                  hd, window, st, SlabRows{}, scale, stream);
+}
+
+// Paged arena k/v [P_phys, page, Hk, hd] with strides (sp, ss, sh);
+// block_tables [M, pmax] int32 physical page ids, row m for query row m;
+// page = 1 << page_shift.  Other arguments as flash_prefill.
+extern "C" int flash_prefill_paged(const void* q, const void* k, const void* v,
+                                   const void* block_tables, const void* q_offset,
+                                   const void* lengths, void* out, int dtype, int M,
+                                   int Sq, int Hk, int G, int pmax, int page_shift,
+                                   int hd, int window, long long q_sm, long long q_ss,
+                                   long long q_sh, long long k_sp, long long k_ss,
+                                   long long k_sh, long long v_sp, long long v_ss,
+                                   long long v_sh, long long o_sm, long long o_ss,
+                                   long long o_sh, float scale, void* stream) {
+  if (page_shift < 0 || page_shift > 16 || pmax < 1) return (int)cudaErrorInvalidValue;
+  const long long st[12] = {q_sm, q_ss, q_sh, k_sp, k_ss, k_sh,
+                            v_sp, v_ss, v_sh, o_sm, o_ss, o_sh};
+  return dispatch(q, k, v, nullptr, q_offset, lengths, out, dtype, M, Sq, Hk, G,
+                  pmax << page_shift, hd, window, st,
+                  PagedRows{(const int*)block_tables, pmax, page_shift}, scale,
+                  stream);
 }

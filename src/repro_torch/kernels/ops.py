@@ -1,5 +1,7 @@
 """Public attention wrappers: check the arguments, then dispatch on the
-tensors' device.
+tensors' device.  Slab caches go to ``flash_prefill``/``flash_decode``,
+the paged arena with its block tables to ``flash_prefill_paged``/
+``flash_decode_paged``.
 
 A CUDA tensor launches the hand-written kernel (``csrc/*.cu``, built at
 first use by ``_build``) or raises: there is no fallback to the plain
@@ -17,17 +19,23 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels.decode_attention import (MAX_GROUP,
-                                                  decode_attention_cuda,
-                                                  decode_attention_plain)
-from repro_torch.kernels.prefill_attention import (prefill_attention_cuda,
-                                                   prefill_attention_plain)
+from repro_torch.kernels.decode_attention import (
+    MAX_GROUP, decode_attention_cuda, decode_attention_paged_cuda,
+    decode_attention_paged_plain, decode_attention_plain)
+from repro_torch.kernels.prefill_attention import (
+    prefill_attention_cuda, prefill_attention_paged_cuda,
+    prefill_attention_paged_plain, prefill_attention_plain)
 
-LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "flash_decode": 0}
+LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "flash_decode": 0,
+                            "flash_prefill_paged": 0,
+                            "flash_decode_paged": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
 _MAX_PREFILL_GROUP = 64
+# page sizes the paged CUDA kernels take: powers of two (each 16-byte
+# vector finds its page with a shift and a mask), 8 to 1024 rows
+PAGE_SIZES = tuple(1 << i for i in range(3, 11))
 
 
 def reset_launches() -> None:
@@ -67,6 +75,35 @@ def _check_common(q, k_cache, v_cache, index_tensors, name: str) -> None:
                                  f"hd and 16-byte alignment")
         if any(not t.is_contiguous() for t in index_tensors):
             raise ValueError(f"{name}: index tensors must be contiguous")
+
+
+def _check_tables(block_tables, rows: int, lengths, k_arena,
+                  name: str) -> None:
+    """Block-table checks on top of ``_check_common``: [rows, P_max]
+    int32, contiguous, on the arena's device, a page size the kernel
+    takes, and ``P_max * page`` bounding the lengths.  The last is read
+    only from CPU tensors: reading a CUDA tensor's values would wait on
+    the stream, so there the kernel clamps the keys at ``P_max * page``
+    instead, as the slab kernel clamps at ``S_max``."""
+    if block_tables.dim() != 2 or block_tables.dtype != torch.int32:
+        raise TypeError(f"{name}: block_tables must be 2-D int32; got "
+                        f"{block_tables.dim()}-D {block_tables.dtype}")
+    if block_tables.device != k_arena.device:
+        raise ValueError(f"{name}: block_tables on {block_tables.device}, "
+                         f"arenas on {k_arena.device}")
+    if not block_tables.is_contiguous():
+        raise ValueError(f"{name}: block_tables must be contiguous")
+    if block_tables.shape[0] != rows:
+        raise ValueError(f"{name}: block_tables has {block_tables.shape[0]} "
+                         f"rows, q has {rows}")
+    page = k_arena.shape[1]
+    if k_arena.is_cuda and page not in PAGE_SIZES:
+        raise ValueError(f"{name}: the CUDA kernel takes page sizes "
+                         f"{PAGE_SIZES}, got {page}")
+    cap = block_tables.shape[1] * page
+    if not lengths.is_cuda and rows and int(lengths.max()) > cap:
+        raise ValueError(f"{name}: lengths up to {int(lengths.max())} exceed "
+                         f"the tables' P_max * page = {cap}")
 
 
 def flash_prefill(q, k_cache, v_cache, q_offset, lengths, *,
@@ -112,4 +149,54 @@ def flash_decode(q, k_cache, v_cache, lengths):
         q = q.contiguous()
     out = decode_attention_cuda(q, k_cache, v_cache, lengths)
     LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def flash_prefill_paged(q, k_arena, v_arena, q_offset, lengths,
+                        block_tables, *, window: int = 0):
+    """Cache-aware chunk prefill through block tables. q: [M, Sq, H, hd];
+    arenas [P_phys, page, Hk, hd]; q_offset/lengths: [M] int32;
+    block_tables [M, P_max] int32 (row m's table) -> [M, Sq, H, hd]."""
+    _check_common(q, k_arena, v_arena, [q_offset, lengths],
+                  "flash_prefill_paged")
+    M = q.shape[0]
+    if q_offset.shape[0] != M or lengths.shape[0] != M:
+        raise ValueError("flash_prefill_paged: q_offset/lengths need M rows")
+    _check_tables(block_tables, M, lengths, k_arena, "flash_prefill_paged")
+    if not q.is_cuda:
+        return prefill_attention_paged_plain(q, k_arena, v_arena, q_offset,
+                                             lengths, block_tables,
+                                             window=window)
+    if q.shape[2] // k_arena.shape[2] > _MAX_PREFILL_GROUP:
+        raise ValueError("flash_prefill_paged: more than 64 query heads per "
+                         "KV head")
+    if q.stride(3) != 1:
+        q = q.contiguous()
+    out = prefill_attention_paged_cuda(q, k_arena, v_arena, q_offset,
+                                       lengths, block_tables, window=window)
+    LAUNCHES["flash_prefill_paged"] += 1
+    return out
+
+
+def flash_decode_paged(q, k_arena, v_arena, lengths, block_tables):
+    """One-token decode through block tables. q: [B, 1, H, hd]; arenas
+    [P_phys, page, Hk, hd]; lengths: [B] int32 valid keys incl. the
+    current one; block_tables [B, P_max] int32 -> [B, 1, H, hd]."""
+    _check_common(q, k_arena, v_arena, [lengths], "flash_decode_paged")
+    B = q.shape[0]
+    if q.shape[1] != 1 or lengths.shape[0] != B:
+        raise ValueError("flash_decode_paged: q must be [B, 1, H, hd] with "
+                         "lengths of B rows")
+    _check_tables(block_tables, B, lengths, k_arena, "flash_decode_paged")
+    if not q.is_cuda:
+        return decode_attention_paged_plain(q, k_arena, v_arena, lengths,
+                                            block_tables)
+    if q.shape[2] // k_arena.shape[2] > MAX_GROUP:
+        raise ValueError(f"flash_decode_paged: more than {MAX_GROUP} query "
+                         f"heads per KV head")
+    if q.stride(3) != 1:
+        q = q.contiguous()
+    out = decode_attention_paged_cuda(q, k_arena, v_arena, lengths,
+                                      block_tables)
+    LAUNCHES["flash_decode_paged"] += 1
     return out

@@ -4,12 +4,14 @@ Closed loop: boots an AgentServe engine for the selected architecture
 (its reduced smoke variant, or the full published config with
 ``--full``), serves a multi-agent ToolBench-like workload and prints the
 per-policy report row.  Runs on the CUDA card unless ``--device cpu`` is
-given; weights are random, drawn on the device from ``--seed``.  The
-online gateway (``--serve``) is not ported yet.
+given; weights are random, drawn on the device from ``--seed``.
+``--kv-layout paged`` serves from the page arena with the radix (or
+exact) prefix cache.  The online gateway (``--serve``) is not ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 from typing import List, Tuple
 
@@ -30,14 +32,17 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def build_engine(args, policy: str) -> Tuple[ServingEngine, object]:
     """One engine for the parsed launcher arguments."""
     device = resolve_device(args.device)
-    cfg = (get_config if args.full else get_smoke_config)(args.arch)
+    cfg = dataclasses.replace(
+        (get_config if args.full else get_smoke_config)(args.arch),
+        kv_layout=args.kv_layout, kv_page_size=args.kv_page_size)
     dtype = DTYPES[args.dtype or ("bfloat16" if device.type == "cuda"
                                   else "float32")]
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, dtype)
     ecfg = EngineConfig(num_slots=args.num_slots or max(args.agents + 2, 6),
                         max_seq=args.max_seq, cycle_budget=160,
-                        granularity=16, control_interval_s=0.1)
+                        granularity=16, control_interval_s=0.1,
+                        prefix_cache=args.prefix_cache)
     return ServingEngine(cfg, params, PLANNERS[policy], ecfg, dtype=dtype,
                          device=device), cfg
 
@@ -83,6 +88,18 @@ def parse_args(argv=None):
                     help="KV rows per slot (the last is the scratch row)")
     ap.add_argument("--num-slots", type=int, default=0,
                     help="KV slots (default: max(agents + 2, 6))")
+    ap.add_argument("--kv-layout", default="slab",
+                    choices=["slab", "paged"],
+                    help="KV cache layout: paged shares prefix pages by "
+                         "reference (zero-copy prefix hits and parks)")
+    ap.add_argument("--kv-page-size", type=int, default=64,
+                    help="rows per page of the paged layout (the CUDA "
+                         "kernels take powers of two from 8 to 1024)")
+    ap.add_argument("--prefix-cache", default="radix",
+                    choices=["radix", "exact"],
+                    help="paged prefix index: radix = longest match over "
+                         "token ids (partial hits, tree-aware eviction); "
+                         "exact = whole-key store")
     ap.add_argument("--full", action="store_true",
                     help="the architecture's full published config instead "
                          "of its reduced smoke variant")

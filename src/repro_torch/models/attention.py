@@ -2,18 +2,20 @@
 
 ``blocked_attention`` is the forward-only plain path (the JAX package's
 XLA reference): an online softmax over KV blocks that never builds the
-full [Sq, Sk] score matrix.  The slab serving dispatchers
-``prefill_attention`` and ``decode_attention`` go through the kernel
-wrappers in ``repro_torch.kernels.ops``: the CUDA kernels on CUDA
-tensors, their plain versions on CPU tensors.  Paths this slice does not
-port (sliding-window decode on CUDA, int8 KV) raise instead of falling
-back.
+full [Sq, Sk] score matrix.  The serving dispatchers go through the
+kernel wrappers in ``repro_torch.kernels.ops``: the CUDA kernels on
+CUDA tensors, their plain versions on CPU tensors.  ``prefill_attention``
+and ``decode_attention`` read the slab cache; ``prefill_attention_paged``
+and ``decode_attention_paged`` read the page arena through block tables.
+Paths the port does not have yet (sliding-window decode on CUDA, int8
+KV) raise instead of falling back.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import paged_gather
 
 NEG_INF = -1e30
 
@@ -94,3 +96,32 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
                                  causal=True, window=0,
                                  block_size=min(block_size, window))
     return ops.flash_decode(q, k_cache, v_cache, lengths.int())
+
+
+def prefill_attention_paged(q, k_arena, v_arena, block_tables, *, q_offset,
+                            lengths, window: int = 0):
+    """Paged serving prefill/resume attention: a [M, Sq] query chunk
+    against one layer's page arenas [P_phys, page, Hk, hd] through
+    ``block_tables`` [M, P_max] (row m's table; chunk rows already
+    written)."""
+    return ops.flash_prefill_paged(q, k_arena, v_arena, q_offset.int(),
+                                   lengths.int(), block_tables.int(),
+                                   window=window)
+
+
+def decode_attention_paged(q, k_arena, v_arena, block_tables, lengths, *,
+                           window: int = 0, block_size: int = 2048):
+    """Paged single-token decode. q: [B, 1, H, hd]; arenas
+    [P_phys, page, Hk, hd]; block_tables [B, P_max]; lengths [B] valid
+    keys incl. the current one.  With ``window > 0`` (CPU tensors only,
+    like the slab path) the pages are gathered and the slab windowed
+    path runs on the linear view, which keeps every position."""
+    if window > 0 and window < block_tables.shape[1] * k_arena.shape[1]:
+        if q.is_cuda:
+            raise NotImplementedError(
+                "sliding-window decode has no CUDA kernel yet")
+        return decode_attention(q, paged_gather(k_arena, block_tables),
+                                paged_gather(v_arena, block_tables), lengths,
+                                window=window, block_size=block_size)
+    return ops.flash_decode_paged(q, k_arena, v_arena, lengths.int(),
+                                  block_tables.int())

@@ -1,9 +1,10 @@
 """The dense decoder layer in prefill and decode modes.
 
 Cache writes are in place: a layer's cache leaves are views
-[B, S_max, Hk, hd] into the stacked [G, B, S_max, Hk, hd] cache, written
-with advanced-index assignment (the JAX package's functional update with
-donation becomes an in-place update here).
+[B, S_max, Hk, hd] into the stacked [G, B, S_max, Hk, hd] slab cache, or
+[P_phys, page, Hk, hd] into the stacked [G, P_phys, page, Hk, hd] page
+arena, written with advanced-index assignment (the JAX package's
+functional update with donation becomes an in-place update here).
 """
 from __future__ import annotations
 
@@ -13,7 +14,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (blocked_attention, decode_attention,
-                                          prefill_attention)
+                                          decode_attention_paged,
+                                          prefill_attention,
+                                          prefill_attention_paged)
 from repro_torch.models.common import rms_norm
 from repro_torch.models.mlp import apply_mlp
 from repro_torch.models.rope import apply_rope
@@ -69,21 +72,59 @@ def _slab_write_scatter(cache, rows_new, positions, slot_idx=None):
     cache[_cache_rows(slot_idx, rows_new.shape[0], rows_new.device), pos] = rows_new
 
 
+def paged_write_index(block_tables, positions, num_pages: int, page: int):
+    """Where new rows land in a page arena of ``num_pages`` physical
+    pages of ``page`` rows: (physical page, row in page), each [B, S],
+    for absolute ``positions`` [B, S] through ``block_tables`` [B, P_max]
+    (unmapped entries already point at the scratch page).  Negative or
+    beyond-table positions go to the scratch (last physical) page, which
+    is never read.  Every layer writes the same places, so a forward
+    computes this once."""
+    p_max = block_tables.shape[1]
+    pos = torch.clamp(positions.long(), min=0)
+    logical = pos // page
+    pg = torch.gather(block_tables.long(), 1,
+                      torch.clamp(logical, max=p_max - 1))
+    oob = (positions < 0) | (logical >= p_max)
+    return torch.where(oob, num_pages - 1, pg), pos % page
+
+
+def _paged_write(arena, rows, block_tables, positions):
+    """Scatter new rows into the page arena through a block table, in
+    place.  arena: [P_phys, page, Hk, hd]; rows: [B, S, Hk, hd]; see
+    ``paged_write_index``.  Distinct sessions own distinct writable
+    pages, so in-range indices never collide; the rows that collide all
+    land on the scratch page."""
+    arena[paged_write_index(block_tables, positions, arena.shape[0],
+                            arena.shape[1])] = rows
+
+
 def apply_attn_mixer(p, x, cfg: ModelConfig, *, mode: str, positions,
                      lengths, layer_cache: Optional[Dict[str, torch.Tensor]],
-                     window: int, write_positions=None, slot_idx=None
-                     ) -> torch.Tensor:
+                     window: int, write_positions=None, slot_idx=None,
+                     block_tables=None, paged_index=None) -> torch.Tensor:
     """x: [M, S, d].  ``lengths`` [M]: valid tokens in the cache *before*
     this call.  ``write_positions`` decouples the K/V write position from
     the attention valid length ([M] in decode mode, [M, S] in prefill
-    mode; out of range = the scratch row).  ``slot_idx`` [M] names each
-    row's cache row (prefill mode).  Writes ``layer_cache`` in place and
-    returns the mixer output."""
+    mode; out of range = the scratch row or page).  ``slot_idx`` [M]
+    names each row's slab cache row (prefill mode).  ``block_tables``
+    [M, P_max] switches to the paged layout (the leaves are page
+    arenas; row m's table); ``paged_index`` is then where the chunk's
+    rows land (``paged_write_index``, write positions already applied).
+    Writes ``layer_cache`` in place and returns the mixer output."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     q, k = _rope(cfg, q, k, positions)
     if mode == "prefill" and layer_cache is None:
         out = blocked_attention(q, k, v, causal=True, window=window)
+    elif mode == "prefill" and block_tables is not None:
+        assert slot_idx is None
+        ck, cv = layer_cache["k"], layer_cache["v"]
+        ck[paged_index] = k
+        cv[paged_index] = v
+        out = prefill_attention_paged(q, ck, cv, block_tables,
+                                      q_offset=lengths, lengths=lengths + S,
+                                      window=window)
     elif mode == "prefill":
         ck, cv = layer_cache["k"], layer_cache["v"]
         if write_positions is not None:
@@ -94,6 +135,13 @@ def apply_attn_mixer(p, x, cfg: ModelConfig, *, mode: str, positions,
         out = prefill_attention(q, ck, cv, q_offset=lengths,
                                 lengths=lengths + S, window=window,
                                 slot_idx=slot_idx)
+    elif mode == "decode" and block_tables is not None:
+        assert layer_cache is not None and S == 1 and slot_idx is None
+        ck, cv = layer_cache["k"], layer_cache["v"]
+        ck[paged_index] = k
+        cv[paged_index] = v
+        out = decode_attention_paged(q, ck, cv, block_tables, lengths + 1,
+                                     window=window)
     elif mode == "decode":
         assert layer_cache is not None and S == 1 and slot_idx is None
         ck, cv = layer_cache["k"], layer_cache["v"]
@@ -107,12 +155,14 @@ def apply_attn_mixer(p, x, cfg: ModelConfig, *, mode: str, positions,
 
 def apply_layer(lp, x, cfg: ModelConfig, *, mode: str, positions, lengths,
                 layer_cache, window: int, write_positions=None,
-                slot_idx=None) -> torch.Tensor:
+                slot_idx=None, block_tables=None,
+                paged_index=None) -> torch.Tensor:
     """Pre-norm residual block (attention mixer + MLP)."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     x = x + apply_attn_mixer(
         lp["attn"], h, cfg, mode=mode, positions=positions, lengths=lengths,
         layer_cache=layer_cache, window=window,
-        write_positions=write_positions, slot_idx=slot_idx)
+        write_positions=write_positions, slot_idx=slot_idx,
+        block_tables=block_tables, paged_index=paged_index)
     h = rms_norm(x, lp["norm2"], cfg.norm_eps)
     return x + apply_mlp(lp["ffn"], h, cfg.act)

@@ -1,4 +1,4 @@
-"""The AgentServe single-engine serving loop (slab KV layout).
+"""The AgentServe single-engine serving loop (slab or paged KV layout).
 
 Execution model: the engine advances in *cycles*.  Each cycle runs at
 most one batched decode step (all active sequences — continuous
@@ -29,6 +29,12 @@ control update is due, up to K decode iterations run as one *megastep*
 drawn from a pre-established grid.  Resume prefills from Q_D are packed
 M-at-a-time into one [M, bucket] batched call that reads and writes the
 shared cache in place through per-row slot indices.
+
+Paged layout (``ModelConfig.kv_layout == "paged"``): every executable
+takes the pool's device block tables as a trailing argument, and every
+dispatch that writes K/V first calls the pool's ``prepare_append`` (map
+missing pages, copy shared ones); a ``KVExhausted`` there defers the op
+to the next cycle.
 
 What replaces the JAX mechanics: the hot-path "executables" are plain
 closures over in-place cache writes (PyTorch runs eagerly; there is no
@@ -102,6 +108,14 @@ class EngineConfig:
     cold_batch_max: int = 4          # M cap for packed cold prefills
     autotune_chunks: bool = True     # measure chunk tok/s at slot warmup
     prefill_tile: int = 128          # KV tile of the tile-skip estimate
+    # --- paged KV pool ----------------------------------------------------
+    kv_pages: int = 0                # paged layout: usable page count
+    #                                  (0 = slab-capacity parity:
+    #                                  num_slots * max_seq / page_size)
+    prefix_cache: str = "radix"      # paged prefix index: "radix"
+    #                                  (longest-match trie over token ids;
+    #                                  partial hits restore by block-table
+    #                                  surgery) | "exact" (whole-key store)
     # --- online reactor ---------------------------------------------------
     trace_max: int = 200_000         # per-cycle telemetry cap
     record_events: bool = False      # run(): keep TokenEvents in
@@ -126,7 +140,8 @@ def _resume_buckets(cfg: EngineConfig) -> List[int]:
 class HotPathExecutables:
     """The hot-path forwards bound to one model config.  Each writes the
     pool cache in place and returns it; callers keep the returned
-    reference (it is the same object)."""
+    reference (it is the same object).  Under the paged layout each takes
+    the device block tables [num_slots, P_max] as a trailing argument."""
     decode: Callable       # per-step decode returning logits
     prefill: Callable      # batch-1 chunk prefill into one slot
     fused: Callable        # device-resident decode step
@@ -135,31 +150,35 @@ class HotPathExecutables:
 
 
 def get_executables(mcfg: ModelConfig) -> HotPathExecutables:
-    def decode_step(params, cache, tokens, lengths):
-        logits, cache, _ = forward_decode(params, mcfg, tokens, cache, lengths)
+    # ``*bt``: the paged layout's block tables (absent for the slab)
+    def decode_step(params, cache, tokens, lengths, *bt):
+        logits, cache, _ = forward_decode(params, mcfg, tokens, cache, lengths,
+                                          block_tables=bt[0] if bt else None)
         return logits, cache
 
-    def prefill_step(params, cache, tokens, slot, length, logit_idx):
+    def prefill_step(params, cache, tokens, slot, length, logit_idx, *bt):
         # slot/length/logit_idx: [1] int32 device tensors
+        row = ({"block_tables": bt[0][slot.long()]} if bt
+               else {"slot_idx": slot})
         logits, cache, _ = forward_prefill(
-            params, mcfg, tokens, cache, length, logit_idx=logit_idx,
-            slot_idx=slot)
+            params, mcfg, tokens, cache, length, logit_idx=logit_idx, **row)
         return logits[0], cache
 
-    def fused_step(params, cache, tokens, lengths, active):
+    def fused_step(params, cache, tokens, lengths, active, *bt):
         return forward_decode_fused(params, mcfg, tokens, cache, lengths,
-                                    active)
+                                    active, block_tables=bt[0] if bt else None)
 
     def megastep(num_steps: int) -> Callable:
-        def mega_step(params, cache, tokens, lengths, active):
-            return forward_decode_megastep(params, mcfg, tokens, cache,
-                                           lengths, active,
-                                           num_steps=num_steps)
+        def mega_step(params, cache, tokens, lengths, active, *bt):
+            return forward_decode_megastep(
+                params, mcfg, tokens, cache, lengths, active,
+                num_steps=num_steps, block_tables=bt[0] if bt else None)
         return mega_step
 
-    def resume_step(params, cache, tokens, slots, lengths, logit_idx):
+    def resume_step(params, cache, tokens, slots, lengths, logit_idx, *bt):
         return forward_resume_batch(params, mcfg, tokens, cache, slots,
-                                    lengths, logit_idx)
+                                    lengths, logit_idx,
+                                    block_tables=bt[0] if bt else None)
 
     return HotPathExecutables(decode=decode_step, prefill=prefill_step,
                               fused=fused_step, resume=resume_step,
@@ -292,8 +311,11 @@ class ServingEngine:
         if self.ecfg.spec_k >= 2:
             raise NotImplementedError(
                 "speculative decode (spec_k >= 2) is not ported yet")
+        self._paged = model_cfg.kv_layout == "paged"
         self.pool = make_pool(model_cfg, self.ecfg.num_slots,
-                              self.ecfg.max_seq, dtype, self.device)
+                              self.ecfg.max_seq, dtype, self.device,
+                              num_pages=self.ecfg.kv_pages,
+                              prefix_cache=self.ecfg.prefix_cache)
         C, g = self.ecfg.cycle_budget, self.ecfg.granularity
         self.scheduler = TPOTScheduler(SchedulerConfig(
             total_resources=C, r_base=g, r_init=2 * g, delta_r=g,
@@ -441,6 +463,21 @@ class ServingEngine:
         reg.gauge("kv_pressure", help="1 when a KVExhausted deferral "
                   "happened within the last 50 cycles",
                   fn=lambda: float(self.kv_pressure_recent()))
+        if self._paged:
+            reg.gauge("free_pages", help="free KV arena pages",
+                      fn=lambda: float(self.pool.free_pages))
+            reg.gauge("pages_in_use", help="allocated KV arena pages",
+                      fn=lambda: float(self.pool.pages_in_use))
+            reg.gauge("page_copies", help="copy-on-write page copies",
+                      fn=lambda: float(self.pool.stats["page_copies"]))
+            if self.pool.prefix_mode == "radix":
+                reg.gauge("radix_nodes", help="live radix-tree nodes "
+                          "in the prefix index",
+                          fn=lambda: float(self.pool.radix_nodes))
+                reg.gauge("prefix_pinned_pages",
+                          help="page references held by the radix "
+                               "prefix index",
+                          fn=lambda: float(self.pool.prefix_page_refs))
         # dispatch-gap + per-cycle accounting state.  The gap subtracts
         # ``_block_since_dispatch`` — host time spent waiting on the
         # device since the previous submission
@@ -491,6 +528,20 @@ class ServingEngine:
     def _i32(self, *vals) -> torch.Tensor:
         return self._h2d(np.asarray(vals, np.int32))
 
+    def _bt(self) -> Tuple:
+        """Trailing block-table argument of the executables (empty under
+        the slab layout, so call sites can splat it unconditionally)."""
+        if not self._paged:
+            return ()
+        return (self.pool.block_tables_device(),)
+
+    def _prepare_append(self, slot: int, n: int) -> None:
+        """Paged pre-dispatch hook: grow or copy-on-write ``slot``'s block
+        table to cover ``n`` tokens from its current length.  No-op under
+        the slab layout."""
+        if self._paged:
+            self.pool.prepare_append(slot, int(self.pool.lengths[slot]), n)
+
     def _build_slot(self, level: int):
         """Slot executable for decode-reservation ``level``: the prefill
         chunk is C - level tokens.  Pre-establishing warms the chunk shape
@@ -522,7 +573,7 @@ class ServingEngine:
         for _ in range(reps):
             self._sync()
             t0 = time.perf_counter()
-            fn(self.params, self.pool.cache, toks, *args)
+            fn(self.params, self.pool.cache, toks, *args, *self._bt())
             self._sync()
             best = min(best, time.perf_counter() - t0)
         return max(best, 1e-9)
@@ -535,14 +586,15 @@ class ServingEngine:
         B = self.ecfg.num_slots
         z = torch.zeros((B,), dtype=torch.int32, device=self.device)
         fn(self.params, self.pool.cache, z, z,
-           torch.zeros((B,), dtype=torch.bool, device=self.device))
+           torch.zeros((B,), dtype=torch.bool, device=self.device),
+           *self._bt())
         self._sync()
         return {"steps": level, "fn": fn}
 
     def _warm_prefill(self, fn, chunk: int) -> None:
         toks = torch.zeros((1, chunk), dtype=torch.int32, device=self.device)
         fn(self.params, self.pool.cache, toks, self._i32(0), self._i32(0),
-           self._i32(chunk - 1))
+           self._i32(chunk - 1), *self._bt())
         self._sync()
 
     def _warm_resume(self, m: int, bucket: int) -> None:
@@ -557,14 +609,15 @@ class ServingEngine:
             torch.arange(m, dtype=torch.int32, device=self.device),
             torch.zeros((m,), dtype=torch.int32, device=self.device),
             torch.full((m,), bucket - 1, dtype=torch.int32,
-                       device=self.device))
+                       device=self.device), *self._bt())
         self._sync()
 
     def _warm_shared(self) -> None:
         B = self.ecfg.num_slots
         zeros_b = torch.zeros((B,), dtype=torch.int32, device=self.device)
         self._ex.fused(self.params, self.pool.cache, zeros_b, zeros_b,
-                       torch.zeros((B,), dtype=torch.bool, device=self.device))
+                       torch.zeros((B,), dtype=torch.bool, device=self.device),
+                       *self._bt())
         self._sync()
         if self.policy.resume_to_decode_queue:
             for m in self._resume_levels:
@@ -606,11 +659,12 @@ class ServingEngine:
         if pad:
             toks = np.concatenate([toks, np.zeros(pad, np.int32)])
         fn = fn or self._prefill_fn
+        self._prepare_append(sess.slot, take)
         logits, self.pool.cache = fn(
             self.params, self.pool.cache,
             self._h2d(np.asarray(toks, np.int32)[None]),
             self._i32(sess.slot), self._i32(self.pool.lengths[sess.slot]),
-            self._i32(take - 1))
+            self._i32(take - 1), *self._bt())
         self._note_prefill_dispatch([self.pool.lengths[sess.slot]], shape_len)
         self._cycle_prefill_tokens += take
         self.pool.lengths[sess.slot] += take
@@ -747,6 +801,19 @@ class ServingEngine:
                 self._completed_window = self._take_window()
             else:
                 self._flush_decode()
+        try:
+            for s in active:
+                # paged: grow/COW each lane's table to cover the K decode
+                # writes before the dispatch (the step reads one table)
+                self._prepare_append(s.slot, K)
+        except KVExhausted:
+            # decode cannot proceed without its pages: skip this cycle's
+            # decode (pages already mapped for earlier lanes stay with
+            # their slots) and retry next cycle; past the defer limit
+            # the session aborts
+            self._kv_defer_or_abort(s.session_id)
+            self._drain_completed()
+            return
         for s in active:
             self._kv_retries.pop(s.session_id, None)
         self._sync_device_state(active)
@@ -758,14 +825,14 @@ class ServingEngine:
         if exe is not None:
             step_toks, nt, nc, nl = exe(self.params, self.pool.cache,
                                         self._dev_tokens, self._dev_lengths,
-                                        self._dev_mask)
+                                        self._dev_mask, *self._bt())
             self._window_toks.append(self._to_host(step_toks))  # [K, B]
             self.hotpath_stats["megasteps"] += 1
             self.hotpath_stats["mega_tokens"] += K * len(active)
         else:
             nt, nc, nl = self._ex.fused(self.params, self.pool.cache,
                                         self._dev_tokens, self._dev_lengths,
-                                        self._dev_mask)
+                                        self._dev_mask, *self._bt())
             self._window_toks.append(self._to_host(nt))         # [B]
             self.hotpath_stats["fused_steps"] += 1
         self._dev_tokens, self._dev_lengths = nt, nl
@@ -1069,8 +1136,14 @@ class ServingEngine:
             for job, _ in reversed(jobs[m:]):
                 qd.appendleft(job)
             jobs = jobs[:m]
-        unfinished = self._dispatch_prefill_batch(jobs, rp.bucket,
-                                                  count_overruns=False)
+        try:
+            unfinished = self._dispatch_prefill_batch(jobs, rp.bucket,
+                                                      count_overruns=False)
+        except KVExhausted as e:
+            for job, _ in reversed(jobs):
+                qd.appendleft(job)       # whole batch retries next cycle
+            self._kv_defer_or_abort(e.session_id)
+            return False
         self.hotpath_stats["resume_batches"] += 1
         self.hotpath_stats["resume_jobs"] += len(jobs)
         for job, _ in unfinished:
@@ -1101,9 +1174,18 @@ class ServingEngine:
         lens = np.asarray([self.pool.lengths[s.slot] for _, s in jobs],
                           np.int32)
         logit_idx = np.asarray([t - 1 for t in takes], np.int32)
+        try:
+            for i, (_, s) in enumerate(jobs):
+                self._prepare_append(s.slot, takes[i])
+        except KVExhausted as e:
+            # name the session for the caller's deferral accounting; pages
+            # mapped for earlier rows stay with their slots (those appends
+            # just find them mapped on the retry)
+            e.session_id = s.session_id
+            raise
         logits, self.pool.cache = self._ex.resume(
             self.params, self.pool.cache, self._h2d(toks), self._h2d(slots),
-            self._h2d(lens), self._h2d(logit_idx))
+            self._h2d(lens), self._h2d(logit_idx), *self._bt())
         self._note_prefill_dispatch(lens, bucket, cold_pack=cold_pack)
         self._cycle_prefill_tokens += sum(takes)
 
@@ -1167,16 +1249,24 @@ class ServingEngine:
         job, s = got
         if s.remaining_prefill == 0:
             raise RuntimeError("fully-cached request needs >=1 new token")
-        if op.kind == "whole":
-            # llama.cpp-style: run the entire prompt to completion
-            while s.state == SessionState.PREFILLING:
-                self._run_prefill_tokens(s, op.shape)
+        try:
+            if op.kind == "whole":
+                # llama.cpp-style: run the entire prompt to completion
+                while s.state == SessionState.PREFILLING:
+                    self._run_prefill_tokens(s, op.shape)
+                return True
+            fn = self._resolve_cold_fn(op, slot_exec)
+            for _ in range(op.reps):
+                if s.state != SessionState.PREFILLING:
+                    break
+                self._run_prefill_tokens(s, op.shape, fn=fn)
+        except KVExhausted:
+            # the chunk's prepare_append rolled back cleanly: the job
+            # returns to the head of Q_P and retries next cycle (lengths
+            # advance only on a successful dispatch)
+            qp.appendleft(job)
+            self._kv_defer_or_abort(s.session_id)
             return True
-        fn = self._resolve_cold_fn(op, slot_exec)
-        for _ in range(op.reps):
-            if s.state != SessionState.PREFILLING:
-                break
-            self._run_prefill_tokens(s, op.shape, fn=fn)
         if s.state == SessionState.PREFILLING:
             qp.appendleft(job)           # unfinished: stays at the head
         return True
@@ -1196,8 +1286,14 @@ class ServingEngine:
             jobs.append(got)
         if not jobs:
             return False
-        unfinished = self._dispatch_prefill_batch(
-            jobs, op.shape, count_overruns=True, cold_pack=len(jobs))
+        try:
+            unfinished = self._dispatch_prefill_batch(
+                jobs, op.shape, count_overruns=True, cold_pack=len(jobs))
+        except KVExhausted as e:
+            for job, _ in reversed(jobs):
+                qp.appendleft(job)       # whole pack retries next cycle
+            self._kv_defer_or_abort(e.session_id)
+            return False
         for job, _ in reversed(unfinished):
             qp.appendleft(job)           # continue next cycle, in order
         return True

@@ -5,10 +5,12 @@ interleaves prefill chunks and decode steps across sessions, each
 session's token stream must equal the stream produced by running that
 session *alone* — whole-prompt prefill, then one greedy decode step per
 token.  ``oracle_streams`` computes exactly that with the engine's own
-hot-path forwards, each session in a fresh pool.
+hot-path forwards, each session in a fresh slab pool (the KV layout does
+not change a stream, so a paged config is served on the slab here).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List
 
 import numpy as np
@@ -23,6 +25,7 @@ def oracle_streams(cfg, params, sessions, *, num_slots: int, max_seq: int,
     """{session_id: [token ids]} for each session decoded in isolation
     in slot 0 of its own pool."""
     dev = resolve_device(device)
+    cfg = dataclasses.replace(cfg, kv_layout="slab")
     ex = get_executables(cfg)
     i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)
     out = {}

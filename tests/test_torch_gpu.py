@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA card and skips without one (the kernels have
+no CPU mode).  The module imports only torch, numpy, pytest and the port,
+so it collects on a machine that has no JAX.  ``tests/conftest.py``
+imports JAX, so on such a machine run it without the conftest:
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_paged_plain, decode_attention_plain, paged_gather)
+from repro_torch.kernels.prefill_attention import (  # noqa: E402
+    prefill_attention_paged_plain, prefill_attention_plain)
+
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+HEADS = [(16, 2, 128), (15, 5, 64), (28, 4, 128), (8, 2, 64)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+
+
+def _err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _i32(v):
+    return torch.tensor(v, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hk,hd", HEADS)
+def test_cuda_kernels_match_plain(cuda, dtype, H, Hk, hd):
+    """Each slab CUDA kernel against its plain version on the card,
+    through a strided (non-contiguous) cache view and a permuted slot
+    order."""
+    tol, dt = TOL[dtype], getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(H + hd)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    B, S = 4, 1024
+    wide_k, wide_v = rnd(B, S, 2 * Hk, hd), rnd(B, S, 2 * Hk, hd)
+    for kc, vc in ((wide_k[:, :, :Hk].contiguous(),
+                    wide_v[:, :, :Hk].contiguous()),
+                   (wide_k[:, :, ::2], wide_v[:, :, ::2])):
+        q, lens = rnd(B, 1, H, hd), _i32([1, 37, 500, 1024])
+        assert _err(ops.flash_decode(q, kc, vc, lens),
+                    decode_attention_plain(q, kc, vc, lens)) <= tol
+        for Sq, window in ((3, 0), (40, 0), (130, 48)):
+            qo = _i32([0, 300, 17])
+            ln, slots = qo + Sq, _i32([3, 0, 2])
+            qq = rnd(3, Sq, H, hd)
+            got = ops.flash_prefill(qq, kc, vc, qo, ln, window=window,
+                                    slot_idx=slots)
+            want = prefill_attention_plain(qq, kc, vc, qo, ln, window=window,
+                                           slot_idx=slots)
+            assert _err(got, want) <= tol
+    torch.cuda.synchronize()
+
+
+def shared_tables(rng, lengths, pmax: int, page: int, num_pages: int):
+    """Block tables [rows, pmax] over a shuffled arena of ``num_pages``
+    usable pages (page ``num_pages`` is the scratch page): rows 0 and 1
+    share their first two pages, every other mapped page is distinct,
+    and entries past a row's length point at the scratch page."""
+    perm = rng.permutation(num_pages)
+    bt = np.full((len(lengths), pmax), num_pages, np.int32)
+    nxt = 0
+    for r, n in enumerate(lengths):
+        need = -(-int(n) // page)
+        bt[r, :need] = perm[nxt:nxt + need]
+        nxt += need
+    bt[1, :2] = bt[0, :2]
+    return bt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [64, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hk,hd", HEADS)
+def test_cuda_paged_kernels_match_plain(cuda, page, dtype, H, Hk, hd):
+    """The paged CUDA kernels against their plain versions, through a
+    permuted table in which two rows share pages and unmapped entries
+    point at the scratch page; and against the slab kernels on the
+    gathered rows."""
+    tol, dt = TOL[dtype], getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(H + hd + page)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    rng = np.random.default_rng(page + hd)
+    pmax = 1024 // page
+    lens = [2 * page + 5, 2 * page + 37, 1, 500, 1024]
+    B = len(lens)
+    P = B * pmax
+    ka, va = rnd(P + 1, page, Hk, hd), rnd(P + 1, page, Hk, hd)
+    bt = torch.tensor(shared_tables(rng, lens, pmax, page, P), device="cuda")
+    L = _i32(lens)
+    q = rnd(B, 1, H, hd)
+    got = ops.flash_decode_paged(q, ka, va, L, bt)
+    assert _err(got, decode_attention_paged_plain(q, ka, va, L, bt)) <= tol
+    kg, vg = paged_gather(ka, bt), paged_gather(va, bt)
+    assert _err(got, ops.flash_decode(q, kg, vg, L)) <= tol
+    for Sq, window in ((3, 0), (40, 0), (130, 48)):
+        rows = _i32([3, 0, 1])
+        qo = _i32([0, 2 * page, 17])
+        ln = qo + Sq
+        bt_m = bt[rows.long()].contiguous()
+        qq = rnd(3, Sq, H, hd)
+        got = ops.flash_prefill_paged(qq, ka, va, qo, ln, bt_m, window=window)
+        want = prefill_attention_paged_plain(qq, ka, va, qo, ln, bt_m,
+                                             window=window)
+        assert _err(got, want) <= tol
+        slab = ops.flash_prefill(qq, kg, vg, qo, ln, window=window,
+                                 slot_idx=rows)
+        assert _err(got, slab) <= tol
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_paged_wrappers_reject_bad_tables(cuda):
+    ka = torch.zeros(9, 48, 2, 64, device="cuda")
+    q = torch.zeros(2, 1, 4, 64, device="cuda")
+    L = _i32([3, 5])
+    with pytest.raises(ValueError, match="page sizes"):
+        ops.flash_decode_paged(q, ka, ka, L, _i32([[0], [1]]))
+    ka = torch.zeros(9, 64, 2, 64, device="cuda")
+    with pytest.raises(TypeError):
+        ops.flash_decode_paged(q, ka, ka, L, _i32([[0], [1]]).long())
+    with pytest.raises(ValueError, match="rows"):
+        ops.flash_decode_paged(q, ka, ka, L, _i32([[0]]))

@@ -4,7 +4,7 @@ On the CPU each port wrapper runs its kernel's plain PyTorch version;
 it is held against the JAX Pallas kernels (interpret mode) and the JAX
 oracles on the same numpy inputs (tolerances of tests/test_kernels.py:
 3e-5 in f32).  The CUDA kernels themselves are held against their plain
-versions by the ``gpu``-marked test, which skips without a card.
+versions on the card by tests/test_torch_gpu.py, which imports no JAX.
 """
 import numpy as np
 import pytest
@@ -19,8 +19,6 @@ from repro.models.attention import (  # noqa: E402
 from test_hotpath_parity import PREFILL_CASES  # noqa: E402
 
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention_plain  # noqa: E402
-from repro_torch.kernels.prefill_attention import prefill_attention_plain  # noqa: E402
 from repro_torch.models.attention import blocked_attention, decode_attention  # noqa: E402
 
 F32 = dict(rtol=3e-5, atol=3e-5)
@@ -153,37 +151,3 @@ def test_wrappers_reject_bad_arguments():
         ops.flash_decode(q, kc, kc, i32)            # Sq != 1
     with pytest.raises(ValueError):
         ops.flash_decode(q[:, :1, :3], kc, kc, i32)  # H % Hk
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
-@pytest.mark.parametrize("H,Hk,hd", [(16, 2, 128), (15, 5, 64), (28, 4, 128),
-                                     (8, 2, 64)])
-def test_cuda_kernels_match_plain(dtype, tol, H, Hk, hd):
-    """Each CUDA kernel against its plain version on the card, through a
-    strided (non-contiguous) cache view and a permuted slot order."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    dt = getattr(torch, dtype)
-    gen = torch.Generator(device="cuda").manual_seed(H + hd)
-    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
-    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
-    B, S = 4, 1024
-    wide_k, wide_v = rnd(B, S, 2 * Hk, hd), rnd(B, S, 2 * Hk, hd)
-    for kc, vc in ((wide_k[:, :, :Hk].contiguous(),
-                    wide_v[:, :, :Hk].contiguous()),
-                   (wide_k[:, :, ::2], wide_v[:, :, ::2])):
-        q, lens = rnd(B, 1, H, hd), i32([1, 37, 500, 1024])
-        err = (ops.flash_decode(q, kc, vc, lens).float()
-               - decode_attention_plain(q, kc, vc, lens).float()).abs().max()
-        assert err.item() <= tol
-        for Sq, window in ((3, 0), (40, 0), (130, 48)):
-            qo = i32([0, 300, 17])
-            ln, slots = qo + Sq, i32([3, 0, 2])
-            qq = rnd(3, Sq, H, hd)
-            got = ops.flash_prefill(qq, kc, vc, qo, ln, window=window,
-                                    slot_idx=slots)
-            want = prefill_attention_plain(qq, kc, vc, qo, ln, window=window,
-                                           slot_idx=slots)
-            assert (got.float() - want.float()).abs().max().item() <= tol
-    torch.cuda.synchronize()

@@ -26,7 +26,8 @@ from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import from_jax_params, init_params  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
-from repro_torch.serving.kvcache import KVCachePool, make_pool  # noqa: E402
+from repro_torch.serving.kvcache import (KVCachePool,  # noqa: E402
+                                         PagedKVCachePool, make_pool)
 from repro_torch.serving.oracle import oracle_streams  # noqa: E402
 from repro_torch.serving.workload import make_workload  # noqa: E402
 
@@ -119,9 +120,10 @@ def test_pool_park_unpark_truncate():
     pool.commit(new, np.asarray([False, True]))
     assert torch.all(pool.cache["l0"]["k"][:, 1] == 7.0)
     assert torch.all(pool.cache["l0"]["k"][:, 0, :7] == 2.5)
-    with pytest.raises(NotImplementedError):
-        make_pool(ModelConfig(**{**CFG.__dict__, "kv_layout": "paged"}), 2,
-                  64, device="cpu")
+    # the paged layout has its own pool (tests/test_torch_radix.py)
+    paged = make_pool(ModelConfig(**{**CFG.__dict__, "kv_layout": "paged"}),
+                      2, 64, device="cpu")
+    assert isinstance(paged, PagedKVCachePool)
 
 
 # ---------------------------------------------------------------------------
