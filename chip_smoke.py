@@ -43,6 +43,32 @@ failure:
              be > 0 and the slab kernels' 0, and it prints the pool's
              prefix hits, partial hits, page copies and peak pages.
 
+Mamba-2 (the SSD chunked scan, ``ssd_scan``):
+
+3-4.       — parity and timing of the scan kernel at mamba2-780m widths
+             (48 heads of 64, d_state 128, chunk 256): S in {1, 50, 160,
+             256, 1000} with a nonzero carried-in state and a tail of
+             dt = 0 rows, f32 within 2e-4 and bf16 within 2e-2 on y and
+             on the state; timed at a 160-token cold chunk and a 4 x 64
+             resume batch beside the bound max(flops / 989e12,
+             bytes / 3.35e12) (2Q^2 N + 2Q^2 hd + 4Q hd N flops per batch
+             row, head and chunk; x, dt, dtA, B, C and h0 read once, y and
+             h written once).  No single PyTorch call computes the scan.
+11. identity_ssm — float32 mamba2-780m widths cut to 4 layers, and a
+             small hybrid (attention + Mamba-2), on agents of one system
+             prompt arriving 1 s apart: slab and paged engine streams
+             equal under the fixed-chunk ``chunked`` policy with the exact
+             prefix cache on both legs, each leg restoring a state
+             snapshot; then the paged leg with the radix index, every
+             stream equal to the isolated greedy oracle (a mismatch prints
+             the oracle's top-2 logit margin at the first diverging step).
+12-15. slice_ssm, profile_ssm and their paged twins — full-width,
+             full-depth mamba2-780m in bf16 through
+             ``repro_torch.launch.serve``'s closed loop (4 agents, react,
+             max_seq 8192): every session finishes, ``ssd_scan``
+             launches > 0 and the four attention kernels' 0; the pool line
+             prints the state copies; then the profile of its forwards.
+
 The last lines are the kernel list, the nvidia-smi line, the kernel JSON
 line and the result JSON line.
 """
@@ -69,6 +95,8 @@ SLICE_TOKEN_SCALE = 1.0
 PAGE = 64
 SLAB_KERNELS = ("flash_prefill", "flash_decode")
 PAGED_KERNELS = ("flash_prefill_paged", "flash_decode_paged")
+SSM_KERNELS = ("ssd_scan",)
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 SOURCES = {
     "flash_prefill": ("src/repro_torch/kernels/csrc/prefill_attention.cu",
                       "src/repro/kernels/prefill_attention.py:243"),
@@ -79,6 +107,8 @@ SOURCES = {
         "src/repro/kernels/prefill_attention.py:264"),
     "flash_decode_paged": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                            "src/repro/kernels/decode_attention.py:82"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:67"),
 }
 
 
@@ -435,6 +465,91 @@ def phase_timing_paged():
     return res
 
 
+# mamba2-780m's scan widths
+SSD_NH, SSD_HD, SSD_N, SSD_CHUNK = 48, 64, 128, 256
+
+
+def ssd_inputs(gen, B, S, dtype, pad=0):
+    """Scan inputs at the magnitude the model path feeds it (|y| of order
+    1): post-softplus dt, A in [-16, -1) as A_log's init draws it, B and
+    C scaled by N^-1/2, a nonzero carried-in state; the last ``pad`` rows
+    have dt = 0 (a padded serving chunk)."""
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    x = rnd(B, S, SSD_NH, SSD_HD).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(B, S, SSD_NH))
+    if pad:
+        dt[:, S - pad:] = 0
+    A = -(1.0 + 15.0 * torch.rand(SSD_NH, generator=gen, device="cuda"))
+    Bm = (rnd(B, S, SSD_N) * SSD_N ** -0.5).to(dtype)
+    Cm = (rnd(B, S, SSD_N) * SSD_N ** -0.5).to(dtype)
+    h0 = 0.1 * rnd(B, SSD_NH, SSD_HD, SSD_N)
+    return x, dt, A, Bm, Cm, h0
+
+
+def phase_parity_ssm():
+    """The scan kernel vs its plain version at mamba2-780m widths."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in (1, 50, 160, 256, 1000):
+            pad = S // 5
+            args = ssd_inputs(gen, 2, S, dtype, pad=pad)
+            y, h = ops.ssd_scan(*args, chunk=SSD_CHUNK)
+            yp, hp = ssd_scan_plain(*args, chunk=SSD_CHUNK)
+            ey, eh = _max_err(y, yp), _max_err(h, hp)
+            torch.cuda.synchronize()
+            log(f"[parity] ssd_scan nh/hd/N={SSD_NH}/{SSD_HD}/{SSD_N} "
+                f"chunk={SSD_CHUNK} {str(dtype)[6:]} B=2 S={S} "
+                f"dt=0 tail={pad} max_abs_err y={ey:.3e} h={eh:.3e} "
+                f"(max|y|={yp.float().abs().max().item():.3f} "
+                f"max|h|={hp.abs().max().item():.3f})")
+            assert bool(torch.isfinite(y.float()).all()), "ssd_scan: y"
+            assert ey <= SSD_TOL[dtype] and eh <= SSD_TOL[dtype], \
+                ("ssd_scan", S, ey, eh)
+            worst = max(worst, ey, eh)
+    return {"ssd_scan": worst}
+
+
+def ssd_bound(B, S, chunk, es):
+    """(flops, bytes) of one scan call, as the TPU kernel performs it."""
+    flops = 0
+    for c0 in range(0, S, chunk):
+        Q = min(chunk, S - c0)
+        flops += B * SSD_NH * (2 * Q * Q * SSD_N + 2 * Q * Q * SSD_HD
+                               + 4 * Q * SSD_HD * SSD_N)
+    nbytes = (2 * B * S * SSD_NH * SSD_HD * es        # x read, y written
+              + 2 * B * S * SSD_NH * 4                # dt, dtA
+              + 2 * B * S * SSD_N * es                # B, C
+              + 2 * B * SSD_NH * SSD_HD * SSD_N * 4)  # h0 read, h written
+    return flops, nbytes
+
+
+def phase_timing_ssm():
+    """The scan kernel and its plain version in bf16 at the slice's
+    shapes: one 160-token cold chunk (B = 1) and a 4 x 64 resume batch."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dtype, es = torch.bfloat16, 2
+    res = {}
+    for what, B, S in (("cold chunk", 1, 160), ("resume batch", 4, 64)):
+        args = ssd_inputs(gen, B, S, dtype)
+        bound, by = _bound_ms(*ssd_bound(B, S, SSD_CHUNK, es), dtype)
+        r = dict(ms=_time_ms(lambda: ops.ssd_scan(*args, chunk=SSD_CHUNK)),
+                 plain_ms=_time_ms(lambda: ssd_scan_plain(
+                     *args, chunk=SSD_CHUNK)),
+                 library_ms=None, bound_ms=bound, bound_by=by)
+        log(f"[timing] ssd_scan {what} B={B} S={S} nh/hd/N="
+            f"{SSD_NH}/{SSD_HD}/{SSD_N} bf16: kernel_ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms=none (no single "
+            f"PyTorch call) bound_ms={bound:.5f} ({by})")
+        if what == "cold chunk":
+            res["ssd_scan"] = r
+    return res
+
+
 def free_device_memory() -> None:
     """Release what a finished phase dropped.  An engine holds reference
     cycles (its telemetry gauges call back into it), so after ``del`` its
@@ -497,18 +612,139 @@ def phase_identity(paged: bool):
     free_device_memory()
 
 
-def phase_slice(paged: bool):
+def hybrid_config():
+    """A small hybrid (attention + Mamba-2, one of each per group) at
+    widths both kernels take: attention heads of 64, Mamba-2 heads of 64
+    with d_state 128."""
+    from repro_torch.configs.base import ModelConfig, SSMConfig
+    return ModelConfig(
+        name="hybrid-4l", family="hybrid", num_layers=4, d_model=512,
+        num_heads=8, num_kv_heads=2, d_ff=1024, vocab_size=50280,
+        ssm=SSMConfig(d_state=128, d_conv=4, expand=2, head_dim=64,
+                      chunk_size=256),
+        hybrid_period=2, hybrid_attn_index=0, tie_embeddings=True,
+        source="small hybrid of mamba2-780m's Mamba-2 widths")
+
+
+def first_divergence_margin(cfg, params, session, got, kw):
+    """Re-run the oracle for one session and return (step, top-2 logit
+    margin there) at the first step where ``got`` leaves its stream."""
+    from repro_torch.serving.engine import get_executables
+    from repro_torch.serving.kvcache import KVCachePool
+    cfg = dataclasses.replace(cfg, kv_layout="slab")
+    ex = get_executables(cfg)
+    pool = KVCachePool(cfg, kw["num_slots"], kw["max_seq"], torch.float32,
+                       "cuda")
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device="cuda")
+    step, length = 0, 0
+
+    def margin(logits):
+        top = torch.topk(logits.float().reshape(-1), 2).values
+        return (top[0] - top[1]).item()
+    for turn in session.turns:
+        pt = torch.tensor(np.asarray(turn.prefill_tokens, np.int32)[None],
+                          device="cuda")
+        logits, pool.cache = ex.prefill(params, pool.cache, pt, i32(0),
+                                        i32(length), i32(pt.shape[1] - 1))
+        length += pt.shape[1]
+        for i in range(turn.decode_len):
+            tok = int(logits.float().reshape(-1).argmax())
+            if step >= len(got) or got[step] != tok:
+                return step, margin(logits)
+            step += 1
+            if i == turn.decode_len - 1:
+                break
+            t = torch.zeros((kw["num_slots"],), dtype=torch.int32,
+                            device="cuda")
+            ln = torch.zeros_like(t)
+            t[0], ln[0] = tok, length
+            logits, pool.cache = ex.decode(params, pool.cache, t, ln)
+            logits = logits[0]
+            length += 1
+    return step, float("nan")
+
+
+def phase_identity_ssm(hybrid: bool):
+    """Slab vs paged engine streams (fixed chunks, exact prefix cache on
+    both legs), then the paged leg with the radix index vs the oracle."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.oracle import oracle_streams
+    from repro_torch.serving.workload import shared_prefix_workload
+    torch.backends.cuda.matmul.allow_tf32 = False       # full f32 products
+    tag = "identity_hybrid" if hybrid else "identity_ssm"
+    base = (hybrid_config() if hybrid else
+            dataclasses.replace(get_config("mamba2-780m"), num_layers=4))
+    log(f"[{tag}] {base.name}: d_model {base.d_model}, {base.num_layers} "
+        f"layers ({'attention + Mamba-2' if hybrid else 'of 48'}), float32")
+    params = init_params(base, torch.Generator(device="cuda").manual_seed(0),
+                         torch.float32)
+    kw = dict(num_slots=5, max_seq=2048)
+    mk = lambda: shared_prefix_workload(
+        3, num_templates=1, vocab_size=base.vocab_size, token_scale=0.25,
+        seed=4, stagger_s=1.0)
+
+    def run(layout, prefix_cache, policy):
+        cfg = dataclasses.replace(base, kv_layout=layout, kv_page_size=PAGE)
+        ecfg = EngineConfig(cycle_budget=160, granularity=16,
+                            control_interval_s=0.1, autotune_chunks=False,
+                            record_events=True, prefix_cache=prefix_cache,
+                            **kw)
+        eng = ServingEngine(cfg, params, policy, ecfg, dtype=torch.float32,
+                            device="cuda")
+        sessions = mk()
+        rep = eng.run(sessions)
+        streams = {}
+        for ev in eng.event_log:
+            streams.setdefault(ev.session_id, []).append(ev.token)
+        for s in sessions:
+            want = sum(t.decode_len for t in s.turns)
+            assert s.output_tokens() == want, (tag, layout, s.session_id)
+        st = eng.pool.stats
+        log(f"[{tag}] {layout} {policy} prefix_cache={prefix_cache}: "
+            f"{sum(len(v) for v in streams.values())} tokens | "
+            f"prefix_hits={st['prefix_hits']} "
+            f"partial_hits={st['prefix_partial_hits']} "
+            f"state_copies={st['state_copies']} | {rep.row()}")
+        del eng
+        return streams, st
+
+    slab, st_s = run("slab", "exact", "chunked")
+    paged, st_p = run("paged", "exact", "chunked")
+    assert paged == slab, f"{tag}: slab and paged streams differ"
+    for st in (st_s, st_p):
+        assert st["prefix_hits"] > 0 and st["state_copies"] > 0, st
+    radix, st_r = run("paged", "radix", "chunked")
+    oracle = oracle_streams(base, params, mk(), dtype=torch.float32,
+                            device="cuda", **kw)
+    for s in mk():
+        got, want = radix[s.session_id], oracle[s.session_id]
+        if got != want:
+            step, m = first_divergence_margin(base, params, s, got, kw)
+            raise AssertionError(
+                f"{tag}: session {s.session_id} leaves the oracle at step "
+                f"{step}; the oracle's top-2 logit margin there is {m:.3e}")
+    log(f"[{tag}] slab == paged (exact), paged radix == oracle for "
+        f"{len(oracle)} sessions, {sum(len(v) for v in oracle.values())} "
+        f"tokens")
+    del params
+    free_device_memory()
+
+
+def phase_slice(paged: bool, arch: str = "qwen2.5-3b"):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    tag = "slice_paged" if paged else "slice"
+    ssm = arch == "mamba2-780m"
+    tag = ("slice_ssm" if ssm else "slice") + ("_paged" if paged else "")
     layout = (["--kv-layout", "paged", "--kv-page-size", str(PAGE)]
               if paged else [])
     args = serve.parse_args([
-        "--full", "--arch", "qwen2.5-3b", "--agents", "4",
+        "--full", "--arch", arch, "--agents", "4",
         "--workload", "react", "--max-seq", "8192",
         "--token-scale", str(SLICE_TOKEN_SCALE)] + layout)
     torch.cuda.reset_peak_memory_stats()
-    log(f"[{tag}] qwen2.5-3b full width and depth, bfloat16, 4 agents, "
+    log(f"[{tag}] {arch} full width and depth, bfloat16, 4 agents, "
         f"react, token_scale={SLICE_TOKEN_SCALE}, max_seq=8192, "
         f"{'paged (page %d, radix)' % PAGE if paged else 'slab'} layout")
     ops.reset_launches()
@@ -523,6 +759,10 @@ def phase_slice(paged: bool):
                                            want)
     own, other = ((PAGED_KERNELS, SLAB_KERNELS) if paged
                   else (SLAB_KERNELS, PAGED_KERNELS))
+    if ssm:
+        own, other = SSM_KERNELS, SLAB_KERNELS + PAGED_KERNELS
+    else:
+        other = other + SSM_KERNELS
     for name in own:
         assert launches[name] > 0, f"{name} was never launched on the path"
     for name in other:
@@ -531,15 +771,22 @@ def phase_slice(paged: bool):
     prompt = sum(len(t.prefill_tokens) for s in sessions for t in s.turns)
     log(f"[{tag}] {serve.ServingReport.HEADER}")
     log(f"[{tag}] {rep.row()}")
+    st = eng.pool.stats
     if paged:
-        st = eng.pool.stats
         log(f"[{tag}] pool: prefix_hits={st['prefix_hits']} "
             f"partial_hits={st['prefix_partial_hits']} "
             f"misses={st['prefix_misses']} page_copies={st['page_copies']} "
+            f"state_copies={st['state_copies']} "
             f"pages_in_use_peak={eng.pool.pages_peak} of "
             f"{eng.pool.num_pages} pages of {PAGE} rows "
+            f"arena_bytes={eng.pool.arena_bytes()} "
             f"evictions={st['evictions']} "
             f"kv_deferred={eng.hotpath_stats['kv_deferred']}")
+    elif ssm:
+        log(f"[{tag}] pool: prefix_hits={st['prefix_hits']} "
+            f"misses={st['prefix_misses']} "
+            f"state_copies={st['state_copies']} "
+            f"parks={st['parks']}")
     log(f"[{tag}] sessions={len(sessions)} output_tokens={toks} "
         f"prompt_tokens={prompt} run_wall_s={rep.wall_time_s:.3f} "
         f"output_tok_s={toks / rep.wall_time_s:.2f} "
@@ -556,7 +803,7 @@ def _device_us(e):
     return 0.0
 
 
-def phase_profile(eng, paged: bool):
+def phase_profile(eng, paged: bool, tag: str = "profile"):
     """Where a slice step's time goes: the slice engine's own forwards,
     timed with the host clock around a synchronize and traced with
     torch.profiler over the device alone (time by kernel, busy share).
@@ -567,7 +814,7 @@ def phase_profile(eng, paged: bool):
     cfg, params, cache = eng.mcfg, eng.params, eng.pool.cache
     B = eng.ecfg.num_slots
     i32 = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
-    tag = "profile_paged" if paged else "profile"
+    tag = tag + ("_paged" if paged else "")
     bt, one = None, {"slot_idx": i32([0])}
     if paged:
         pmax = eng.pool.pages_per_slot
@@ -618,8 +865,10 @@ def main() -> int:
     phase_build()
     worst = phase_parity()
     worst.update(phase_parity_paged())
+    worst.update(phase_parity_ssm())
     timing = phase_timing()
     timing.update(phase_timing_paged())
+    timing.update(phase_timing_ssm())
     phase_identity(paged=False)
     launches, eng = phase_slice(paged=False)
     phase_profile(eng, paged=False)
@@ -628,8 +877,21 @@ def main() -> int:
     phase_identity(paged=True)
     launches_paged, eng = phase_slice(paged=True)
     phase_profile(eng, paged=True)
-    # each kernel's launches are those of the slice that runs its layout
+    del eng
+    free_device_memory()
+    phase_identity_ssm(hybrid=False)
+    phase_identity_ssm(hybrid=True)
+    launches_ssm, eng = phase_slice(paged=False, arch="mamba2-780m")
+    phase_profile(eng, paged=False, tag="profile_ssm")
+    del eng
+    free_device_memory()
+    launches_ssm_paged, eng = phase_slice(paged=True, arch="mamba2-780m")
+    phase_profile(eng, paged=True, tag="profile_ssm")
+    # each kernel's launches are those of the slice that runs its path
+    # (the scan: the slab Mamba-2 slice; its paged twin's count is in the
+    # slice_ssm_paged line)
     launches.update({k: launches_paged[k] for k in PAGED_KERNELS})
+    launches.update({k: launches_ssm[k] for k in SSM_KERNELS})
     log("kernels: " + "; ".join(
         f"{k} parity=ok max_abs_err={worst[k]:.3e} launches={launches[k]}"
         for k in SOURCES))

@@ -3,9 +3,10 @@
 ``ModelConfig`` keeps the JAX package's fields one-to-one, so a config
 built from the same keyword arguments describes the same model in both
 packages.  ``reduced()`` derives the CPU-smoke variant of the same family
-(≤2 layers, d_model ≤ 256).  The registry lists only the dense
-architectures the port runs; asking for a known architecture whose
-family is not ported yet raises ``NotImplementedError``.
+(≤2 layers, d_model ≤ 256).  The registry lists the architectures the
+port runs (dense decoders and the attention-free Mamba-2); asking for a
+known architecture whose family is not ported yet raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -86,6 +87,15 @@ class ModelConfig:
         ``vocab_size``."""
         return -(-self.vocab_size // 128) * 128
 
+    def layer_kind(self, i: int) -> str:
+        """'attn' or 'ssm' for layer i (hybrid interleave)."""
+        if self.family == "ssm":
+            return "ssm"
+        if self.hybrid_period:
+            return ("attn" if (i % self.hybrid_period) == self.hybrid_attn_index
+                    else "ssm")
+        return "attn"
+
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Same family, shrunk per contract: ≤2 layers, d_model ≤ 256."""
@@ -120,17 +130,18 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     )
 
 
-# Architectures the port runs (dense decoders; the paper's testbed model
-# and the smallest smoke architecture).
+# Architectures the port runs (dense decoders: the paper's testbed model
+# and the smallest smoke architecture; the attention-free Mamba-2 SLM).
 ARCH_MODULES = {
     "smollm-360m": "smollm_360m",
     "qwen2.5-3b": "qwen2_5_3b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 # Architectures of the JAX package that the port does not run yet.
 NOT_PORTED = {
     "mixtral-8x22b": "moe", "olmoe-1b-7b": "moe",
-    "jamba-1.5-large-398b": "hybrid", "mamba2-780m": "ssm",
+    "jamba-1.5-large-398b": "hybrid",
     "hubert-xlarge": "audio", "qwen2-vl-7b": "vlm",
     "starcoder2-15b": "dense", "llama3.2-3b": "dense",
     "phi4-mini-3.8b": "dense", "qwen2.5-7b": "dense", "llama3-8b": "dense",

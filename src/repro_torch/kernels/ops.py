@@ -1,7 +1,7 @@
-"""Public attention wrappers: check the arguments, then dispatch on the
+"""Public kernel wrappers: check the arguments, then dispatch on the
 tensors' device.  Slab caches go to ``flash_prefill``/``flash_decode``,
 the paged arena with its block tables to ``flash_prefill_paged``/
-``flash_decode_paged``.
+``flash_decode_paged``; the Mamba-2 chunked scan is ``ssd_scan``.
 
 A CUDA tensor launches the hand-written kernel (``csrc/*.cu``, built at
 first use by ``_build``) or raises: there is no fallback to the plain
@@ -25,10 +25,12 @@ from repro_torch.kernels.decode_attention import (
 from repro_torch.kernels.prefill_attention import (
     prefill_attention_cuda, prefill_attention_paged_cuda,
     prefill_attention_paged_plain, prefill_attention_plain)
+from repro_torch.kernels.ssd_scan import (MAX_CHUNK, SHAPES, ssd_scan_cuda,
+                                          ssd_scan_plain)
 
 LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "flash_decode": 0,
                             "flash_prefill_paged": 0,
-                            "flash_decode_paged": 0}
+                            "flash_decode_paged": 0, "ssd_scan": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
@@ -199,4 +201,45 @@ def flash_decode_paged(q, k_arena, v_arena, lengths, block_tables):
     out = decode_attention_paged_cuda(q, k_arena, v_arena, lengths,
                                       block_tables)
     LAUNCHES["flash_decode_paged"] += 1
+    return out
+
+
+def ssd_scan(x, dt, A, Bm, Cm, h0, *, chunk: int = 128):
+    """Mamba-2 SSD over a sequence, model layout (no ``D`` term).
+    x: [B, S, nh, hd] and Bm/Cm: [B, S, N], one of f32/bf16; dt: [B, S, nh]
+    post-softplus f32; A: [nh] negative f32; h0: [B, nh, hd, N] f32.
+    Chunks of ``chunk`` rows (the last may be short).
+    Returns (y [B, S, nh, hd] in x's type, h_final [B, nh, hd, N] f32)."""
+    if x.dim() != 4 or Bm.dim() != 3 or Cm.shape != Bm.shape:
+        raise ValueError(f"ssd_scan: x must be [B, S, nh, hd] and B/C "
+                         f"[B, S, N]; got {tuple(x.shape)}, "
+                         f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
+    B, S, nh, hd = x.shape
+    N = Bm.shape[-1]
+    if (Bm.shape[:2] != (B, S) or tuple(dt.shape) != (B, S, nh)
+            or tuple(A.shape) != (nh,) or tuple(h0.shape) != (B, nh, hd, N)):
+        raise ValueError(f"ssd_scan: shapes disagree: x {tuple(x.shape)}, "
+                         f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
+                         f"B {tuple(Bm.shape)}, h0 {tuple(h0.shape)}")
+    if not (x.dtype == Bm.dtype == Cm.dtype) or x.dtype not in _DTYPES:
+        raise TypeError(f"ssd_scan: x/B/C must share one of {_DTYPES}; got "
+                        f"{x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if any(t.dtype != torch.float32 for t in (dt, A, h0)):
+        raise TypeError("ssd_scan: dt, A and h0 must be float32")
+    if len({t.device for t in (x, dt, A, Bm, Cm, h0)}) != 1:
+        raise ValueError("ssd_scan: tensors on several devices")
+    if chunk < 1:
+        raise ValueError(f"ssd_scan: chunk must be >= 1, got {chunk}")
+    if not x.is_cuda:
+        return ssd_scan_plain(x, dt, A, Bm, Cm, h0, chunk=chunk)
+    if (hd, N) not in SHAPES:
+        raise ValueError(f"ssd_scan: the CUDA kernel takes (hd, N) in "
+                         f"{SHAPES}, got {(hd, N)}")
+    if min(chunk, max(S, 1)) > MAX_CHUNK:
+        raise ValueError(f"ssd_scan: the CUDA kernel takes chunks of at most "
+                         f"{MAX_CHUNK} rows, got {chunk}")
+    if S == 0 or B == 0:
+        return torch.empty_like(x), h0.clone()
+    out = ssd_scan_cuda(x, dt, A, Bm, Cm, h0, chunk=chunk)
+    LAUNCHES["ssd_scan"] += 1
     return out

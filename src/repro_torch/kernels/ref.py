@@ -1,4 +1,4 @@
-"""Naive PyTorch oracles for the attention kernels.
+"""Naive PyTorch oracles for the attention and SSD kernels.
 
 Deliberately naive (full score matrices, repeated KV heads): the ground
 truth the kernels and their plain versions are tested against, never the
@@ -42,3 +42,23 @@ def naive_decode_attention(q, k_cache, v_cache, lengths, *, window=0):
     """q: [B, 1, H, hd]; caches [B, S, Hk, hd]; lengths incl. current."""
     return naive_attention(q, k_cache, v_cache, causal=True, window=window,
                            q_offset=lengths - 1, lengths=lengths)
+
+
+def naive_ssd(x, dt, Bm, Cm, A, D, h0=None):
+    """Step-by-step SSD recurrence (the definition, O(S) sequential).
+
+    x: [B, S, nh, hd]; dt: [B, S, nh] (post-softplus); Bm/Cm: [B, S, N];
+    A: [nh] (negative); D: [nh].  Returns (y [B, S, nh, hd], h_final)."""
+    B_, S, nh, hd = x.shape
+    N = Bm.shape[-1]
+    h = (torch.zeros((B_, nh, hd, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    xf, Bf, Cf = x.float(), Bm.float(), Cm.float()
+    ys = []
+    for t in range(S):
+        a = torch.exp(dt[:, t] * A[None, :])                      # [B, nh]
+        h = h * a[:, :, None, None] + torch.einsum(
+            "bh,bhd,bn->bhdn", dt[:, t], xf[:, t], Bf[:, t])
+        ys.append(torch.einsum("bhdn,bn->bhd", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + xf * D[None, None, :, None]
+    return y.to(x.dtype), h

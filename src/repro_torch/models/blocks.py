@@ -1,18 +1,26 @@
-"""The dense decoder layer in prefill and decode modes.
+"""Layer slots (attention or Mamba-2 mixer; MLP or no FFN) in prefill and
+decode modes.
 
-Cache writes are in place: a layer's cache leaves are views
+A *layer slot* is described statically by ``LayerSpec``, as in the JAX
+package; ``models.model`` stacks identical slots across repeating groups.
+
+Cache writes are in place: an attention layer's cache leaves are views
 [B, S_max, Hk, hd] into the stacked [G, B, S_max, Hk, hd] slab cache, or
 [P_phys, page, Hk, hd] into the stacked [G, P_phys, page, Hk, hd] page
 arena, written with advanced-index assignment (the JAX package's
-functional update with donation becomes an in-place update here).
+functional update with donation becomes an in-place update here).  A
+Mamba-2 layer's leaves are per-slot states [B, ...] on both layouts,
+gathered by slot, advanced, and written back (only on active lanes).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import mamba2
 from repro_torch.models.attention import (blocked_attention, decode_attention,
                                           decode_attention_paged,
                                           prefill_attention,
@@ -20,6 +28,19 @@ from repro_torch.models.attention import (blocked_attention, decode_attention,
 from repro_torch.models.common import rms_norm
 from repro_torch.models.mlp import apply_mlp
 from repro_torch.models.rope import apply_rope
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: str        # "attn" | "ssm"
+    ffn: str         # "mlp" | "none"
+
+
+def layer_specs_for_group(cfg: ModelConfig, group_size: int):
+    """Static layout of one repeating group (layer i uses i % group_size)."""
+    return tuple(LayerSpec(kind=cfg.layer_kind(j),
+                           ffn="none" if cfg.d_ff == 0 else "mlp")
+                 for j in range(group_size))
 
 
 def _qkv(p, x, cfg: ModelConfig):
@@ -153,16 +174,63 @@ def apply_attn_mixer(p, x, cfg: ModelConfig, *, mode: str, positions,
     return out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"]
 
 
-def apply_layer(lp, x, cfg: ModelConfig, *, mode: str, positions, lengths,
-                layer_cache, window: int, write_positions=None,
-                slot_idx=None, block_tables=None,
-                paged_index=None) -> torch.Tensor:
-    """Pre-norm residual block (attention mixer + MLP)."""
+def apply_ssm_mixer(p, x, cfg: ModelConfig, *, mode: str, layer_cache,
+                    slot_idx=None, active=None, valid=None) -> torch.Tensor:
+    """Mamba-2 mixer over x: [M, S, d].  ``layer_cache``: this layer's
+    per-slot state leaves (conv_x, conv_B, conv_C [B, d_conv-1, ch]; ssd
+    [B, nh, hd, N]) or None (start from a zero state, write nothing).
+    Row m reads and writes slot ``slot_idx[m]`` (default: slot m), on
+    both layouts.  ``active`` [M] bool (decode): lanes whose state may
+    advance; the others keep theirs.  ``valid`` [M]: real tokens per row
+    of a padded prefill chunk (the state fence)."""
+    M = x.shape[0]
+    rows = None if slot_idx is None else slot_idx.long()
+    if layer_cache is None:
+        state = mamba2.init_ssm_state(M, cfg.d_model, cfg.ssm, x.dtype,
+                                      x.device)
+    else:
+        state = mamba2.SSMState(**{
+            k: (v[:M] if rows is None else v[rows])
+            for k, v in layer_cache.items()})
+    if mode == "decode":
+        out, new = mamba2.apply_mamba2_step(p, x, state, cfg.ssm)
+    else:
+        out, new = mamba2.apply_mamba2_scan(p, x, state, cfg.ssm, valid=valid)
+    if layer_cache is not None:
+        for k, leaf in layer_cache.items():
+            n = getattr(new, k).to(leaf.dtype)
+            if active is not None:
+                n = torch.where(active.reshape((M,) + (1,) * (n.dim() - 1)),
+                                n, getattr(state, k))
+            if rows is None:
+                leaf[:M].copy_(n)
+            else:
+                leaf[rows] = n
+    return out
+
+
+def apply_layer(lp, x, cfg: ModelConfig, spec: LayerSpec, *, mode: str,
+                positions, lengths, layer_cache, window: int,
+                write_positions=None, slot_idx=None, block_tables=None,
+                paged_index=None, active=None,
+                ssm_valid=None) -> torch.Tensor:
+    """Pre-norm residual block (attention or Mamba-2 mixer, then the MLP
+    unless the slot has none).  ``slot_idx`` names each row's slab cache
+    row for attention, and each row's state slot for Mamba-2 on both
+    layouts (the paged attention rows go through ``block_tables``)."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-    x = x + apply_attn_mixer(
-        lp["attn"], h, cfg, mode=mode, positions=positions, lengths=lengths,
-        layer_cache=layer_cache, window=window,
-        write_positions=write_positions, slot_idx=slot_idx,
-        block_tables=block_tables, paged_index=paged_index)
+    if spec.kind == "attn":
+        x = x + apply_attn_mixer(
+            lp["attn"], h, cfg, mode=mode, positions=positions,
+            lengths=lengths, layer_cache=layer_cache, window=window,
+            write_positions=write_positions,
+            slot_idx=None if block_tables is not None else slot_idx,
+            block_tables=block_tables, paged_index=paged_index)
+    else:
+        x = x + apply_ssm_mixer(lp["ssm"], h, cfg, mode=mode,
+                                layer_cache=layer_cache, slot_idx=slot_idx,
+                                active=active, valid=ssm_valid)
+    if spec.ffn == "none":
+        return x
     h = rms_norm(x, lp["norm2"], cfg.norm_eps)
     return x + apply_mlp(lp["ffn"], h, cfg.act)

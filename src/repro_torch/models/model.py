@@ -1,16 +1,21 @@
 """Model assembly: stacked layer groups, a Python loop over them.
 
-The parameters are a dict that mirrors the JAX package's pytree:
-``params["groups"]["l0"]`` holds every layer's weights stacked along a
-leading group axis G (a dense decoder has one layer per group, so
-G = num_layers), and the serving cache is ``{"l0": {"k", "v"}}`` with
-leaves [G, B, S_max, Hk, hd] (slab layout) or [G, P + 1, page, Hk, hd]
-(paged layout: a page arena addressed through per-slot block tables,
-the last page the write scratch page).  Keys, stacked axes and weight
-orientation (``x @ wq`` with wq [d, H * hd]) are the JAX package's, so
-``from_jax_params`` carries its weights across one to one.  The JAX
-``lax.scan`` over groups is a Python loop here, and cache writes are in
-place: every forward returns the cache object it was given, updated.
+Every architecture is ``G`` repetitions of a statically described group
+of ``gs`` layer slots (``group_layout``: gs = hybrid_period, or 1), as
+in the JAX package.  The parameters are a dict that mirrors the JAX
+pytree: ``params["groups"]["l{j}"]`` holds slot j's weights stacked along
+a leading group axis G (a dense decoder or a pure Mamba-2 stack has one
+slot, so G = num_layers).  The serving cache has the same keys: an
+attention slot holds {"k", "v"} with leaves [G, B, S_max, Hk, hd] (slab
+layout) or [G, P + 1, page, Hk, hd] (paged layout: a page arena
+addressed through per-slot block tables, the last page the write
+scratch page); a Mamba-2 slot holds per-slot states {"conv_x", "conv_B",
+"conv_C", "ssd"} [G, B, ...] on both layouts.  Keys, stacked axes and
+weight orientation (``x @ wq`` with wq [d, H * hd]) are the JAX
+package's, so ``from_jax_params`` carries its weights across one to one.
+The JAX ``lax.scan`` over groups is a Python loop here, and cache writes
+are in place: every forward returns the cache object it was given,
+updated.
 
 Public entry points:
   init_params / from_jax_params   — weights (random, or from JAX numpy)
@@ -27,13 +32,16 @@ layout (None: slab).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import apply_layer, paged_write_index
+from repro_torch.models import mamba2
+from repro_torch.models.blocks import (LayerSpec, apply_layer,
+                                       layer_specs_for_group,
+                                       paged_write_index)
 from repro_torch.models.common import dense_init, embed_init, rms_norm
 
 # Cache leaves whose writes are positional (rows at sequence offsets
@@ -42,39 +50,66 @@ POSITIONAL_CACHE_KEYS = frozenset({"k", "v", "ks", "vs"})
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.mrope or cfg.encoder_only:
+    if (cfg.family not in ("dense", "ssm", "hybrid") or cfg.moe is not None
+            or cfg.mrope or cfg.encoder_only):
         raise NotImplementedError(
-            f"{cfg.name}: only dense decoders are ported "
-            f"(family {cfg.family!r})")
+            f"{cfg.name}: only dense, Mamba-2 and hybrid (attention + "
+            f"Mamba-2, no MoE) decoders are ported (family {cfg.family!r})")
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} needs an "
+                         f"SSMConfig")
+
+
+def group_layout(cfg: ModelConfig) -> Tuple[int, int, Tuple[LayerSpec, ...]]:
+    """(G, group_size, specs): ``G`` repetitions of ``group_size`` slots."""
+    _check_ported(cfg)
+    gs = cfg.hybrid_period or 1
+    if cfg.num_layers % gs:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not a "
+                         f"multiple of the group size {gs}")
+    return cfg.num_layers // gs, gs, layer_specs_for_group(cfg, gs)
+
+
+def _layer_shapes(cfg: ModelConfig, spec: LayerSpec, G: int):
+    d, hd = cfg.d_model, cfg.head_dim
+    H, Hk, ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+    out: Dict[str, Any] = {"norm1": ((G, d), ("ones",), False)}
+    if spec.kind == "attn":
+        out["attn"] = {"wq": ((G, d, H * hd), ("dense", d), False),
+                       "wk": ((G, d, Hk * hd), ("dense", d), False),
+                       "wv": ((G, d, Hk * hd), ("dense", d), False),
+                       "wo": ((G, H * hd, d), ("dense", H * hd), False)}
+    else:
+        out["ssm"] = {k: ((G,) + shape, init, k in mamba2.F32_PARAMS)
+                      for k, (shape, init)
+                      in mamba2.mamba2_shapes(d, cfg.ssm).items()}
+    if spec.ffn != "none":
+        out["norm2"] = ((G, d), ("ones",), False)
+        if cfg.act == "swiglu":
+            out["ffn"] = {"w_gate": ((G, d, ff), ("dense", d), False),
+                          "w_up": ((G, d, ff), ("dense", d), False),
+                          "w_down": ((G, ff, d), ("dense", ff), False)}
+        else:
+            out["ffn"] = {"w_up": ((G, d, ff), ("dense", d), False),
+                          "w_down": ((G, ff, d), ("dense", ff), False)}
+    return out
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
-    """Nested dict of (shape, init) per leaf: init is ("dense", fan_in),
-    ("embed",) or ("ones",)."""
-    _check_ported(cfg)
-    G, d, hd = cfg.num_layers, cfg.d_model, cfg.head_dim
-    H, Hk, ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
-    if cfg.act == "swiglu":
-        ffn = {"w_gate": ((G, d, ff), ("dense", d)),
-               "w_up": ((G, d, ff), ("dense", d)),
-               "w_down": ((G, ff, d), ("dense", ff))}
-    else:
-        ffn = {"w_up": ((G, d, ff), ("dense", d)),
-               "w_down": ((G, ff, d), ("dense", ff))}
+    """Nested dict of (shape, init, f32) per leaf: init is ("dense",
+    fan_in), ("embed",), ("ones",), ("zeros",), ("normal", scale) or
+    ("a_log",); ``f32`` marks leaves that stay float32 whatever the
+    model's type (Mamba-2's dt_bias, A_log and D)."""
+    G, _, specs = group_layout(cfg)
+    d = cfg.d_model
     out = {
-        "embed": ((cfg.padded_vocab, d), ("embed",)),
-        "groups": {"l0": {
-            "norm1": ((G, d), ("ones",)),
-            "attn": {"wq": ((G, d, H * hd), ("dense", d)),
-                     "wk": ((G, d, Hk * hd), ("dense", d)),
-                     "wv": ((G, d, Hk * hd), ("dense", d)),
-                     "wo": ((G, H * hd, d), ("dense", H * hd))},
-            "norm2": ((G, d), ("ones",)),
-            "ffn": ffn}},
-        "final_norm": ((d,), ("ones",)),
+        "embed": ((cfg.padded_vocab, d), ("embed",), False),
+        "groups": {f"l{j}": _layer_shapes(cfg, spec, G)
+                   for j, spec in enumerate(specs)},
+        "final_norm": ((d,), ("ones",), False),
     }
     if not cfg.tie_embeddings:
-        out["lm_head"] = ((d, cfg.padded_vocab), ("embed",))
+        out["lm_head"] = ((d, cfg.padded_vocab), ("embed",), False)
     return out
 
 
@@ -88,15 +123,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.float32) -> Dict[str, Any]:
     """Random weights with the JAX package's distributions (normal x
     1/sqrt(fan_in) for dense layers, normal x 0.02 for the embedding,
-    ones for the norms), drawn from ``generator`` on its own device: a
-    full-width model is made directly on the card this way."""
+    ones for the norms; Mamba-2: normal x 0.1 conv weights, zero biases,
+    A_log = log U[1, 16), D = 1), drawn from ``generator`` on its own
+    device: a full-width model is made directly on the card this way."""
     device = generator.device
-    def make(shape, init):
-        if init[0] == "ones":
-            return torch.ones(shape, dtype=dtype, device=device)
-        if init[0] == "embed":
-            return embed_init(generator, shape, dtype, device)
-        return dense_init(generator, shape, init[1], dtype, device)
+
+    def make(shape, init, f32):
+        dt = torch.float32 if f32 else dtype
+        kind = init[0]
+        if kind in ("ones", "zeros"):
+            fill = torch.ones if kind == "ones" else torch.zeros
+            return fill(shape, dtype=dt, device=device)
+        if kind == "embed":
+            return embed_init(generator, shape, dt, device)
+        if kind == "dense":
+            return dense_init(generator, shape, init[1], dt, device)
+        if kind == "normal":
+            return (torch.randn(shape, generator=generator, device=device)
+                    * init[1]).to(dt)
+        if kind == "a_log":
+            u = torch.rand(shape, generator=generator, device=device)
+            return torch.log(1.0 + 15.0 * u).to(dt)
+        raise ValueError(f"unknown init {init!r}")
     return _map_spec(param_shapes(cfg), make)
 
 
@@ -106,7 +154,8 @@ def from_jax_params(cfg: ModelConfig, tree, dtype=None,
     with its leaves already turned into numpy arrays by the caller; keys,
     stacked axes and orientation are kept as they are.  ``dtype`` None
     keeps each leaf's type (bfloat16 leaves arrive as float32 when numpy
-    cannot hold them)."""
+    cannot hold them); otherwise every leaf takes ``dtype`` except those
+    that stay float32 by design (``param_shapes``)."""
     def take(node, spec, path):
         if isinstance(spec, dict):
             if not isinstance(node, dict) or set(node) != set(spec):
@@ -114,14 +163,16 @@ def from_jax_params(cfg: ModelConfig, tree, dtype=None,
                 raise ValueError(f"{path or 'params'}: keys {got} != "
                                  f"{sorted(spec)}")
             return {k: take(node[k], spec[k], f"{path}/{k}") for k in spec}
-        shape = spec[0]
+        shape, _, f32 = spec
         arr = np.asarray(node)
         if tuple(arr.shape) != tuple(shape):
             raise ValueError(f"{path}: shape {arr.shape} != {shape}")
         if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
             arr = arr.astype(np.float32)
         t = torch.tensor(arr, device=device)
-        return t if dtype is None else t.to(dtype)
+        if dtype is None:
+            return t
+        return t.to(torch.float32 if f32 else dtype)
     return take(tree, param_shapes(cfg), "")
 
 
@@ -134,24 +185,40 @@ def num_kv_pages(cfg: ModelConfig, batch: int, max_seq: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.float32, device="cuda",
                num_pages: int = 0) -> Dict[str, Any]:
-    """Serving cache {"l0": {"k", "v"}}.  Slab layout: leaves
-    [G, batch, max_seq, Hk, hd].  ``cfg.kv_layout == "paged"``: leaves
-    [G, num_pages + 1, page, Hk, hd], a page arena addressed through
-    per-slot block tables; the extra last page is the write scratch page
-    (never read).  ``num_pages`` 0 means slab-capacity parity."""
-    _check_ported(cfg)
-    if cfg.kv_layout == "paged":
+    """Serving cache, one entry per group slot ``l{j}``.  Attention
+    slots, slab layout: {"k", "v"} [G, batch, max_seq, Hk, hd];
+    ``cfg.kv_layout == "paged"``: [G, num_pages + 1, page, Hk, hd], a
+    page arena addressed through per-slot block tables, the extra last
+    page the write scratch page (never read); ``num_pages`` 0 means
+    slab-capacity parity.  Mamba-2 slots, both layouts: per-slot states
+    conv_x/conv_B/conv_C [G, batch, d_conv - 1, ch] in ``dtype`` and ssd
+    [G, batch, nh, hd, N] in float32 (a recurrent state is a point
+    summary at one length, not positional rows, so it is never paged)."""
+    G, _, specs = group_layout(cfg)
+    paged = cfg.kv_layout == "paged"
+    if paged:
         if max_seq % cfg.kv_page_size:
             raise ValueError(f"max_seq {max_seq} is not a multiple of the "
                              f"page size {cfg.kv_page_size}")
         num_pages = num_pages or num_kv_pages(cfg, batch, max_seq)
-        shape = (cfg.num_layers, num_pages + 1, cfg.kv_page_size,
-                 cfg.num_kv_heads, cfg.head_dim)
+        kv_shape = (G, num_pages + 1, cfg.kv_page_size, cfg.num_kv_heads,
+                    cfg.head_dim)
     else:
-        shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
-                 cfg.head_dim)
-    return {"l0": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                   "v": torch.zeros(shape, dtype=dtype, device=device)}}
+        kv_shape = (G, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    cache: Dict[str, Any] = {}
+    for j, spec in enumerate(specs):
+        if spec.kind == "attn":
+            cache[f"l{j}"] = {
+                "k": torch.zeros(kv_shape, dtype=dtype, device=device),
+                "v": torch.zeros(kv_shape, dtype=dtype, device=device)}
+        else:
+            st = mamba2.init_ssm_state(batch, cfg.d_model, cfg.ssm, dtype,
+                                       "meta")
+            cache[f"l{j}"] = {
+                k: torch.zeros((G,) + tuple(v.shape), dtype=v.dtype,
+                               device=device)
+                for k, v in st._asdict().items()}
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -167,12 +234,16 @@ def _layer_params(node, g: int):
 
 def _run_layers(params, x, cfg: ModelConfig, *, mode: str, positions,
                 lengths, cache, window: int, write_positions=None,
-                slot_idx=None, block_tables=None):
-    group = params["groups"]["l0"]
-    layer_cache = None if cache is None else cache["l0"]
+                slot_idx=None, block_tables=None, active=None,
+                ssm_valid=None):
+    G, _, specs = group_layout(cfg)
+    groups = params["groups"]
     paged_index = None
-    if block_tables is not None and layer_cache is not None:
-        # every layer writes the same arena rows: find them once
+    arena = None if cache is None else next(
+        (cache[f"l{j}"]["k"] for j, sp in enumerate(specs)
+         if sp.kind == "attn"), None)
+    if block_tables is not None and arena is not None:
+        # every attention layer writes the same arena rows: find them once
         pos_w = write_positions
         if pos_w is None:
             pos_w = (lengths if mode == "decode" else
@@ -181,17 +252,20 @@ def _run_layers(params, x, cfg: ModelConfig, *, mode: str, positions,
                          dtype=lengths.dtype)[None, :])
         if mode == "decode":
             pos_w = pos_w[:, None]
-        arena = layer_cache["k"]
         paged_index = paged_write_index(block_tables, pos_w, arena.shape[1],
                                         arena.shape[2])
-    for g in range(cfg.num_layers):
-        lc = (None if layer_cache is None else
-              {"k": layer_cache["k"][g], "v": layer_cache["v"][g]})
-        x = apply_layer(_layer_params(group, g), x, cfg, mode=mode,
-                        positions=positions, lengths=lengths, layer_cache=lc,
-                        window=window, write_positions=write_positions,
-                        slot_idx=slot_idx, block_tables=block_tables,
-                        paged_index=paged_index)
+    for g in range(G):
+        for j, spec in enumerate(specs):
+            name = f"l{j}"
+            lc = (None if cache is None else
+                  {k: v[g] for k, v in cache[name].items()})
+            x = apply_layer(_layer_params(groups[name], g), x, cfg, spec,
+                            mode=mode, positions=positions, lengths=lengths,
+                            layer_cache=lc, window=window,
+                            write_positions=write_positions,
+                            slot_idx=slot_idx, block_tables=block_tables,
+                            paged_index=paged_index, active=active,
+                            ssm_valid=ssm_valid)
     return x
 
 
@@ -210,9 +284,12 @@ def forward_prefill(params, cfg: ModelConfig, tokens, cache, lengths, *,
 
     tokens: [M, S] appended at per-row offsets ``lengths`` [M].
     ``logit_idx`` [M]: position within the chunk whose logits to return
-    (default: the last).  ``slot_idx`` [M]: the slab cache row each chunk
-    row reads and writes (default: row m).  ``block_tables`` [M, P_max]:
-    the paged layout, row m's table (then ``slot_idx`` is None).
+    (default: the last); it marks the last real token of a padded row,
+    so it also fences the Mamba-2 state against the padding.
+    ``slot_idx`` [M]: the cache slot each chunk row reads and writes
+    (default: row m): its slab attention rows and, on both layouts, its
+    Mamba-2 states.  ``block_tables`` [M, P_max]: the paged layout, row
+    m's table (the attention rows go through it).
     Returns (logits [M, vocab], cache, new_lengths)."""
     x = params["embed"][tokens]
     M, S, _ = x.shape
@@ -220,7 +297,8 @@ def forward_prefill(params, cfg: ModelConfig, tokens, cache, lengths, *,
                                                 dtype=lengths.dtype)[None, :]
     h = _run_layers(params, x, cfg, mode="prefill", positions=positions,
                     lengths=lengths, cache=cache, window=cfg.sliding_window,
-                    slot_idx=slot_idx, block_tables=block_tables)
+                    slot_idx=slot_idx, block_tables=block_tables,
+                    ssm_valid=None if logit_idx is None else logit_idx + 1)
     if logit_idx is None:
         h_last = h[:, -1]
     else:
@@ -229,17 +307,18 @@ def forward_prefill(params, cfg: ModelConfig, tokens, cache, lengths, *,
 
 
 def forward_decode(params, cfg: ModelConfig, tokens, cache, lengths, *,
-                   write_positions=None, block_tables=None):
+                   write_positions=None, block_tables=None, active=None):
     """One decode step. tokens: [B] (last sampled token per sequence).
     ``write_positions`` [B] decouples where the new K/V row lands from
     the attention valid length (default: ``lengths``; negative = the
     paged scratch page).  ``block_tables`` [B, P_max]: the paged layout.
-    Returns (logits [B, vocab], cache, new_lengths)."""
+    ``active`` [B] bool: the lanes whose Mamba-2 states advance (default:
+    every lane).  Returns (logits [B, vocab], cache, new_lengths)."""
     x = params["embed"][tokens[:, None]]
     h = _run_layers(params, x, cfg, mode="decode", positions=lengths[:, None],
                     lengths=lengths, cache=cache, window=cfg.sliding_window,
                     write_positions=write_positions,
-                    block_tables=block_tables)
+                    block_tables=block_tables, active=active)
     return _logits(params, cfg, h[:, 0]), cache, lengths + 1
 
 
@@ -248,27 +327,10 @@ def forward_decode(params, cfg: ModelConfig, tokens, cache, lengths, *,
 # ---------------------------------------------------------------------------
 
 
-def merge_decode_cache(new_cache, old_cache, active):
-    """Merge a decode step's cache updates under an active-lane mask.
-    Positional (attention KV) leaves pass through: inactive lanes only
-    wrote their scratch row.  Stateful leaves would be where-selected
-    per lane; a dense decoder has none."""
-    out = {}
-    for name, layer in new_cache.items():
-        if set(layer) <= POSITIONAL_CACHE_KEYS:
-            out[name] = layer
-            continue
-        out[name] = {}
-        for k, n in layer.items():
-            shape = (1, n.shape[1]) + (1,) * (n.dim() - 2)
-            out[name][k] = torch.where(active.reshape(shape), n,
-                                       old_cache[name][k])
-    return out
-
-
 def _scratch_write_lengths(cache, lengths, active):
     """Redirect inactive lanes' positional writes to the cache's last
-    sequence row (the scratch row; engines keep real content out of it)."""
+    sequence row (the scratch row; engines keep real content out of it).
+    Attention-free caches need no redirect."""
     for layer in cache.values():
         if "k" in layer:
             return torch.where(active, lengths,
@@ -283,22 +345,23 @@ def forward_decode_fused(params, cfg: ModelConfig, tokens, cache, lengths,
     device and never syncs per token.
 
     tokens: [B] int32; active: [B] bool.  Returns (next_tokens [B],
-    cache, new_lengths); inactive lanes keep their token and length, and
-    their only cache write lands in the scratch row (slab) or scratch
-    page (paged).  Attention still reads each lane's real length."""
+    cache, new_lengths); inactive lanes keep their token and length, their
+    only attention write lands in the scratch row (slab) or scratch page
+    (paged), and their Mamba-2 states are written back unchanged (the
+    JAX package's active-lane merge, done at the in-place write).
+    Attention still reads each lane's real length."""
     if block_tables is not None:
         # paged: a negative write position redirects to the scratch page
         write_positions = torch.where(active, lengths,
                                       torch.full_like(lengths, -1))
     else:
         write_positions = _scratch_write_lengths(cache, lengths, active)
-    logits, new_cache, _ = forward_decode(
+    logits, cache, _ = forward_decode(
         params, cfg, tokens, cache, lengths, write_positions=write_positions,
-        block_tables=block_tables)
+        block_tables=block_tables, active=active)
     next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     next_tokens = torch.where(active, next_tokens, tokens)
-    merged = merge_decode_cache(new_cache, cache, active)
-    return next_tokens, merged, lengths + active.to(lengths.dtype)
+    return next_tokens, cache, lengths + active.to(lengths.dtype)
 
 
 def forward_decode_megastep(params, cfg: ModelConfig, tokens, cache,
@@ -324,16 +387,14 @@ def forward_resume_batch(params, cfg: ModelConfig, tokens, cache, slot_idx,
     tokens: [M, S]; slot_idx: [M] (distinct cache slots); lengths: [M]
     (cached tokens per slot); logit_idx: [M] (last unpadded position per
     row).  The chunk rows read and write their slots of the shared cache
-    in place through ``slot_idx`` (no gather of whole slot stripes);
-    under the paged layout (``block_tables`` [B, P_max]) through the M
-    table rows ``block_tables[slot_idx]``.
+    in place through ``slot_idx`` (no gather of whole slot stripes); the
+    Mamba-2 states of those slots are gathered, advanced and scattered
+    back on both layouts; under the paged layout (``block_tables``
+    [B, P_max]) the attention rows go through the M table rows
+    ``block_tables[slot_idx]``.
     Returns (logits [M, vocab], cache)."""
-    if block_tables is not None:
-        logits, cache, _ = forward_prefill(
-            params, cfg, tokens, cache, lengths, logit_idx=logit_idx,
-            block_tables=block_tables[slot_idx.long()])
-        return logits, cache
+    bt = None if block_tables is None else block_tables[slot_idx.long()]
     logits, cache, _ = forward_prefill(
         params, cfg, tokens, cache, lengths, logit_idx=logit_idx,
-        slot_idx=slot_idx)
+        slot_idx=slot_idx, block_tables=bt)
     return logits, cache

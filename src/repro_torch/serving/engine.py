@@ -157,11 +157,11 @@ def get_executables(mcfg: ModelConfig) -> HotPathExecutables:
         return logits, cache
 
     def prefill_step(params, cache, tokens, slot, length, logit_idx, *bt):
-        # slot/length/logit_idx: [1] int32 device tensors
-        row = ({"block_tables": bt[0][slot.long()]} if bt
-               else {"slot_idx": slot})
+        # slot/length/logit_idx: [1] int32 device tensors; the slot names
+        # the row's slab rows and its recurrent states on both layouts
         logits, cache, _ = forward_prefill(
-            params, mcfg, tokens, cache, length, logit_idx=logit_idx, **row)
+            params, mcfg, tokens, cache, length, logit_idx=logit_idx,
+            slot_idx=slot, block_tables=bt[0][slot.long()] if bt else None)
         return logits[0], cache
 
     def fused_step(params, cache, tokens, lengths, active, *bt):
@@ -463,6 +463,10 @@ class ServingEngine:
         reg.gauge("kv_pressure", help="1 when a KVExhausted deferral "
                   "happened within the last 50 cycles",
                   fn=lambda: float(self.kv_pressure_recent()))
+        if self.pool.has_state_leaves:
+            reg.gauge("state_copies", help="recurrent-state snapshots and "
+                      "restores (prefix registrations and hits, parks)",
+                      fn=lambda: float(self.pool.stats["state_copies"]))
         if self._paged:
             reg.gauge("free_pages", help="free KV arena pages",
                       fn=lambda: float(self.pool.free_pages))

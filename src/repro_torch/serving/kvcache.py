@@ -7,8 +7,9 @@ step is the order of launches on the device's stream.
 
 Prefix cache (slab layout, ``KVCachePool``): after a cold prefill of a
 shared system prompt, the engine registers a *snapshot* of that slot's
-cache rows at that length.  A later cold prefill with an identical token
-prefix copies the snapshot instead of recomputing.
+cache rows (attention rows and recurrent states) at that length.  A
+later cold prefill with an identical token prefix copies the snapshot
+instead of recomputing.
 
 Paged layout (``PagedKVCachePool``): the K/V leaves are a flat page arena
 ``[G, num_pages + 1, page_size, Hk, hd]`` addressed through per-slot
@@ -17,6 +18,13 @@ block-table surgery (no device copy), and the first divergent write to
 a shared page copies that one page (copy-on-write).  The prefix index is
 a radix trie over token ids (longest-prefix, partial hits) or the exact
 whole-key store.  The slab pool remains the reference.
+
+Recurrent (Mamba-2) state leaves are per-slot point summaries on both
+layouts: a slot's state is zeroed when it is allocated, and a prefix
+entry or a parked slot carries a copy of it taken at exactly its length
+(``stats["state_copies"]`` counts the copies taken and restored).  The
+radix index can therefore restore only at a node boundary that holds
+such a snapshot.
 """
 from __future__ import annotations
 
@@ -28,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import init_cache, num_kv_pages
+from repro_torch.models import POSITIONAL_CACHE_KEYS, init_cache, num_kv_pages
 
 
 class KVExhausted(RuntimeError):
@@ -49,17 +57,24 @@ def _prefix_key(tokens: np.ndarray) -> str:
                         .tobytes()).hexdigest()
 
 
-def _snapshot(cache, slot: int):
-    """Copy of every cache leaf's rows for ``slot`` ([:, slot])."""
+def _is_positional(layer: Dict[str, Any]) -> bool:
+    return set(layer) <= POSITIONAL_CACHE_KEYS
+
+
+def _snapshot(cache, slot: int, state_only: bool = False):
+    """Copy of the cache leaves' rows for ``slot`` ([:, slot]): every leaf,
+    or (``state_only``) the recurrent-state leaves alone."""
     return {name: {k: v[:, slot].clone() for k, v in layer.items()}
-            for name, layer in cache.items()}
+            for name, layer in cache.items()
+            if not (state_only and _is_positional(layer))}
 
 
 def _restore(cache, snapshot, slot: int) -> None:
-    """Write a snapshot back into ``slot``, in place."""
-    for name, layer in cache.items():
+    """Write a snapshot (of every leaf, or of the state leaves) back into
+    ``slot``, in place."""
+    for name, layer in snapshot.items():
         for k, v in layer.items():
-            v[:, slot].copy_(snapshot[name][k])
+            cache[name][k][:, slot].copy_(v)
 
 
 @dataclasses.dataclass
@@ -92,10 +107,12 @@ class KVCachePool:
         # bumped whenever the set of cached prefixes changes (register /
         # evict); the engine keys its per-session probe cache on this
         self.prefix_version = 0
+        self.has_state_leaves = any(not _is_positional(layer)
+                                    for layer in self.cache.values())
         self.stats = {"alloc": 0, "free": 0, "prefix_hits": 0,
                       "prefix_partial_hits": 0, "prefix_misses": 0,
                       "prefix_refreshes": 0, "evictions": 0,
-                      "parks": 0, "unparks": 0}
+                      "parks": 0, "unparks": 0, "state_copies": 0}
 
     def _init_cache(self, cfg, num_slots, max_seq, dtype):
         return init_cache(cfg, num_slots, max_seq, dtype, self.device)
@@ -107,8 +124,19 @@ class KVCachePool:
         slot = min(self._free)
         self._free.discard(slot)
         self.lengths[slot] = 0
+        if self.has_state_leaves:
+            self.reset_slot_state(slot)
         self.stats["alloc"] += 1
         return slot
+
+    def reset_slot_state(self, slot: int) -> None:
+        """Zero the slot's recurrent-state leaves.  Attention rows are
+        fenced by ``lengths``, but a state summarises everything before
+        it: a freed session's state must not seed the next occupant."""
+        for layer in self.cache.values():
+            if not _is_positional(layer):
+                for v in layer.values():
+                    v[:, slot].zero_()
 
     def free(self, slot: int) -> None:
         self._check_allocated(slot)
@@ -151,7 +179,12 @@ class KVCachePool:
         self._prefix[key] = PrefixEntry(
             snapshot=_snapshot(self.cache, slot), length=len(tokens),
             last_used=self._tick)
+        self._count_state_copy()
         self.prefix_version += 1
+
+    def _count_state_copy(self) -> None:
+        if self.has_state_leaves:
+            self.stats["state_copies"] += 1
 
     def peek_prefix(self, tokens: np.ndarray) -> int:
         """Non-mutating probe: length of the cached prefix for these
@@ -204,6 +237,7 @@ class KVCachePool:
         """Copy a snapshot into ``dst_slot`` (one device copy per leaf)."""
         _restore(self.cache, entry.snapshot, dst_slot)
         self.lengths[dst_slot] = entry.length
+        self._count_state_copy()
 
     def _evict_one(self) -> None:
         """Evict the least-recently-used entry."""
@@ -236,6 +270,7 @@ class KVCachePool:
         prefix store), so a parked session never loses its state."""
         entry = PrefixEntry(snapshot=_snapshot(self.cache, slot),
                             length=int(self.lengths[slot]))
+        self._count_state_copy()
         self.free(slot)
         self.stats["parks"] += 1
         return entry
@@ -293,6 +328,7 @@ class PagedEntry:
     mutation: ``restore_prefix`` it at once."""
     pages: np.ndarray      # int32 [n] physical page ids (no -1 entries)
     length: int
+    state: Any = None      # recurrent-state snapshot, or None (dense)
     refs: int = 0
     last_used: int = 0
     owns_refs: bool = True
@@ -309,10 +345,12 @@ class _RadixNode:
     whole-page) plus this node's rows, so it is valid for the node's
     whole coverage.  Path assembly therefore writes pages deepest node
     first, and the deeper node wins at shared indices.  ``pin`` guards a
-    node against eviction while an insert along its path is in flight."""
+    node against eviction while an insert along its path is in flight.
+    ``state`` is the recurrent-state snapshot at ``end`` (models with
+    state leaves; None where no snapshot was taken)."""
 
     __slots__ = ("tokens", "start", "pages", "parent", "children",
-                 "last_used", "pin")
+                 "last_used", "pin", "state")
 
     def __init__(self, tokens: np.ndarray, start: int, pages: np.ndarray,
                  parent: Optional["_RadixNode"]):
@@ -323,6 +361,7 @@ class _RadixNode:
         self.children: Dict[int, "_RadixNode"] = {}
         self.last_used = 0
         self.pin = 0
+        self.state: Any = None
 
     @property
     def end(self) -> int:
@@ -340,14 +379,17 @@ class PagedKVCachePool(KVCachePool):
 
     * ``register_prefix`` / ``restore_prefix`` (a prefix hit) and
       ``park`` / ``unpark`` are block-table surgery with no device copy
-      (``stats["page_copies"]`` counts the exceptions).
+      of attention rows (``stats["page_copies"]`` counts the exceptions);
+      models with recurrent state copy that small per-slot state
+      (``stats["state_copies"]``).
     * Writers call ``prepare_append(slot, start, n)`` before dispatching
       device work that writes positions ``[start, start + n)``: it maps
       missing pages and copies shared ones, so a write never touches a
       page another holder can read.
 
-    Only models without recurrent state are ported; a config with SSM
-    layers is refused by ``init_cache``."""
+    State leaves stay per slot ([G, num_slots, ...]); a model without
+    attention layers has no arena at all (no page is ever copied, and
+    ``arena_bytes`` is 0)."""
 
     def __init__(self, cfg: ModelConfig, num_slots: int, max_seq: int,
                  dtype=torch.float32, device="cuda",
@@ -427,13 +469,27 @@ class PagedKVCachePool(KVCachePool):
         return -(-length // self.page_size)
 
     def _copy_page(self, src: int, dst: int) -> None:
-        """Copy one physical page of every leaf (all G layers in one op
-        per leaf): the COW cost of a first divergent write, O(page).
+        """Copy one physical page of every arena leaf (all G layers in one
+        op per leaf): the COW cost of a first divergent write, O(page).
         Enqueued on the current stream, so it runs after every step
         already dispatched and before the write that needs it."""
         for layer in self.cache.values():
-            for leaf in layer.values():
-                leaf[:, dst].copy_(leaf[:, src])
+            if _is_positional(layer):
+                for leaf in layer.values():
+                    leaf[:, dst].copy_(leaf[:, src])
+
+    def _state_snapshot(self, slot: int):
+        """The slot's recurrent-state snapshot (None without state
+        leaves), counted in ``stats["state_copies"]``."""
+        if not self.has_state_leaves:
+            return None
+        self.stats["state_copies"] += 1
+        return _snapshot(self.cache, slot, state_only=True)
+
+    def _state_restore(self, slot: int, state) -> None:
+        if state is not None:
+            _restore(self.cache, state, slot)
+            self.stats["state_copies"] += 1
 
     # ---- slot lifecycle -------------------------------------------------
     def free(self, slot: int) -> None:
@@ -555,8 +611,9 @@ class PagedKVCachePool(KVCachePool):
             for p in pages:
                 self._incref(int(p))
             self.stats["shared_pages"] += len(pages)
-            self._prefix[key] = PagedEntry(pages=pages, length=len(tokens),
-                                           last_used=self._tick)
+            self._prefix[key] = PagedEntry(
+                pages=pages, length=len(tokens),
+                state=self._state_snapshot(slot), last_used=self._tick)
             self.prefix_version += 1
             return
         toks = np.ascontiguousarray(tokens, np.int32).ravel()
@@ -565,7 +622,15 @@ class PagedKVCachePool(KVCachePool):
         self._tick += 1
         node, matched = self._radix_walk(toks)
         if matched == len(toks):
-            # fully covered: refresh recency only
+            # fully covered: refresh recency only, with one exception: a
+            # stateful model ending where no state boundary exists yet
+            # gets a split and a snapshot, so the boundary is restorable
+            if self.has_state_leaves:
+                if node.end > matched:
+                    node = self._radix_split(node, matched)
+                if node.state is None:
+                    node.state = self._state_snapshot(slot)
+                    self.prefix_version += 1
             self._radix_touch(node)
             self.stats["prefix_refreshes"] += 1
             return
@@ -579,6 +644,7 @@ class PagedKVCachePool(KVCachePool):
             child = self._radix_append(node, slot, toks, matched)
         finally:
             node.pin -= 1
+        child.state = self._state_snapshot(slot)
         self._radix_touch(child)
         self.prefix_version += 1
 
@@ -616,12 +682,22 @@ class PagedKVCachePool(KVCachePool):
     def _radix_match(self, toks: np.ndarray, cap: int):
         """``(node, usable_len)``: the longest restorable prefix of
         ``toks``, at most ``cap``.  Attention K/V rows are pure functions
-        of the token prefix, so a match may end anywhere."""
+        of the token prefix, so without state leaves a match may end
+        anywhere; a recurrent state is valid only at the length it was
+        taken, so a stateful model's match ends at the deepest node
+        boundary on the path that holds a snapshot."""
         node, matched = self._radix_walk(toks)
         usable = min(matched, cap)
         if usable <= 0:
             return None, 0
-        return node, usable
+        if not self.has_state_leaves:
+            return node, usable
+        n = node
+        while n is not None and n.parent is not None:
+            if n.state is not None and n.end <= usable:
+                return n, n.end
+            n = n.parent
+        return None, 0
 
     def _radix_assemble(self, node: "_RadixNode", length: int) -> np.ndarray:
         """The physical pages backing positions ``[0, length)`` along
@@ -760,8 +836,8 @@ class PagedKVCachePool(KVCachePool):
         # a borrowed view of the tree's pages: restore_prefix takes the
         # slot's own references
         return PagedEntry(pages=self._radix_assemble(node, usable),
-                          length=usable, last_used=self._tick,
-                          owns_refs=False)
+                          length=usable, state=node.state,
+                          last_used=self._tick, owns_refs=False)
 
     def restore_prefix(self, dst_slot: int, entry: PagedEntry) -> None:
         """A prefix hit: point ``dst_slot``'s table at the shared pages
@@ -772,6 +848,7 @@ class PagedKVCachePool(KVCachePool):
             self.block_table[dst_slot, i] = int(p)
         self._bt_dev = None
         self.lengths[dst_slot] = entry.length
+        self._state_restore(dst_slot, entry.state)
 
     def _drop_entry(self, entry: PagedEntry) -> None:
         if not entry.owns_refs:
@@ -786,7 +863,8 @@ class PagedKVCachePool(KVCachePool):
         not in the evictable prefix store."""
         pages = self.block_table[slot]
         pages = pages[pages >= 0].copy()
-        entry = PagedEntry(pages=pages, length=int(self.lengths[slot]))
+        entry = PagedEntry(pages=pages, length=int(self.lengths[slot]),
+                           state=self._state_snapshot(slot))
         self._release_slot(slot)          # refs move with the entry
         self.stats["parks"] += 1
         return entry
@@ -797,6 +875,7 @@ class PagedKVCachePool(KVCachePool):
         self.block_table[slot, :len(entry.pages)] = entry.pages
         self._bt_dev = None
         self.lengths[slot] = entry.length
+        self._state_restore(slot, entry.state)
         self.stats["unparks"] += 1
 
     # ---- step integration ----------------------------------------------
@@ -807,9 +886,10 @@ class PagedKVCachePool(KVCachePool):
         self.cache = new_cache
 
     def arena_bytes(self) -> int:
-        """The arena's footprint in bytes."""
+        """The positional arena's footprint in bytes (0 without attention
+        layers; per-slot state leaves are not part of it)."""
         return sum(leaf.numel() * leaf.element_size()
-                   for layer in self.cache.values()
+                   for layer in self.cache.values() if _is_positional(layer)
                    for leaf in layer.values())
 
 

@@ -135,3 +135,73 @@ def test_cuda_paged_wrappers_reject_bad_tables(cuda):
         ops.flash_decode_paged(q, ka, ka, L, _i32([[0], [1]]).long())
     with pytest.raises(ValueError, match="rows"):
         ops.flash_decode_paged(q, ka, ka, L, _i32([[0]]))
+
+
+# ---------------------------------------------------------------------------
+# the SSD chunked scan
+# ---------------------------------------------------------------------------
+
+def ssd_inputs(gen, Bn, S, nh, hd, N, dtype):
+    """Inputs at the magnitude the model path feeds the scan (|y| of
+    order 1): post-softplus dt, A in [-16, -1) as A_log's init draws it,
+    B and C scaled by N^-1/2, a nonzero carried-in state."""
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    x = rnd(Bn, S, nh, hd).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(Bn, S, nh))
+    A = -(1.0 + 15.0 * torch.rand(nh, generator=gen, device="cuda"))
+    Bm = (rnd(Bn, S, N) * N ** -0.5).to(dtype)
+    Cm = (rnd(Bn, S, N) * N ** -0.5).to(dtype)
+    h0 = 0.1 * rnd(Bn, nh, hd, N)
+    return x, dt, A, Bm, Cm, h0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [16, 64, 256])
+@pytest.mark.parametrize("hd,N", [(64, 128), (32, 16), (64, 64)])
+def test_cuda_ssd_scan_matches_plain(cuda, dtype, chunk, hd, N):
+    """The kernel against its plain version, S not a multiple of the
+    chunk (and shorter than one), y and the final state."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    tol, dt_ = TOL[dtype], getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(chunk + hd + N)
+    for S in (1, chunk - 3 if chunk > 3 else 2, 2 * chunk + 7):
+        args = ssd_inputs(gen, 2, S, 6, hd, N, dt_)
+        before = ops.LAUNCHES["ssd_scan"]
+        y, h = ops.ssd_scan(*args, chunk=chunk)
+        assert ops.LAUNCHES["ssd_scan"] == before + 1
+        yp, hp = ssd_scan_plain(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        assert y.dtype == dt_ and h.dtype == torch.float32
+        assert bool(torch.isfinite(y.float()).all())
+        assert _err(y, yp) <= tol, (S, _err(y, yp))
+        assert _err(h, hp) <= tol, (S, _err(h, hp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_scan_padding_fence(cuda, dtype):
+    """Trailing rows with dt = 0 (a padded serving chunk) leave the state
+    bit for bit as the unpadded call does, and the real rows' y too."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x, dt, A, Bm, Cm, h0 = ssd_inputs(gen, 2, 200, 8, 64, 128,
+                                      getattr(torch, dtype))
+    fenced = dt.clone()
+    fenced[:, 150:] = 0
+    y, h = ops.ssd_scan(x, fenced, A, Bm, Cm, h0, chunk=256)
+    ys, hs = ops.ssd_scan(x[:, :150], dt[:, :150], A, Bm[:, :150],
+                          Cm[:, :150], h0, chunk=256)
+    torch.cuda.synchronize()
+    assert torch.equal(h, hs)
+    assert torch.equal(y[:, :150], ys)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_rejects_what_it_does_not_take(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    args = ssd_inputs(gen, 1, 8, 2, 16, 8, torch.float32)
+    with pytest.raises(ValueError, match="hd, N"):
+        ops.ssd_scan(*args, chunk=8)
+    args = ssd_inputs(gen, 1, 300, 2, 64, 128, torch.float32)
+    with pytest.raises(ValueError, match="256"):
+        ops.ssd_scan(*args, chunk=300)

@@ -257,8 +257,8 @@ def test_make_pool_dispatches_on_layout():
                           PagedKVCachePool)
     with pytest.raises(ValueError, match="multiple"):
         make_pool(CFG, 2, 60, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_pool(dataclasses.replace(CFG, family="hybrid"), 2, 64,
+    with pytest.raises(NotImplementedError):      # MoE: not ported yet
+        make_pool(dataclasses.replace(CFG, family="moe"), 2, 64,
                   device="cpu")
 
 
