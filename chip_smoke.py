@@ -51,9 +51,11 @@ Mamba-2 (the SSD chunked scan, ``ssd_scan``):
              dt = 0 rows, f32 within 2e-4 and bf16 within 2e-2 on y and
              on the state; timed at a 160-token cold chunk and a 4 x 64
              resume batch beside the bound max(flops / 989e12,
-             bytes / 3.35e12) (2Q^2 N + 2Q^2 hd + 4Q hd N flops per batch
-             row, head and chunk; x, dt, dtA, B, C and h0 read once, y and
-             h written once).  No single PyTorch call computes the scan.
+             bytes / 3.35e12) (per batch row and chunk of Q rows, with
+             T = Q(Q+1)/2 causal pairs: 2TN flops for C B^T, shared by the
+             heads, and 2T hd + 4Q hd N per head; x, dt, B, C, h0 and A
+             read once, y and h written once).  No single PyTorch call
+             computes the scan.
 11. identity_ssm — float32 mamba2-780m widths cut to 4 layers, and a
              small hybrid (attention + Mamba-2), on agents of one system
              prompt arriving 1 s apart: slab and paged engine streams
@@ -469,33 +471,17 @@ def phase_timing_paged():
 SSD_NH, SSD_HD, SSD_N, SSD_CHUNK = 48, 64, 128, 256
 
 
-def ssd_inputs(gen, B, S, dtype, pad=0):
-    """Scan inputs at the magnitude the model path feeds it (|y| of order
-    1): post-softplus dt, A in [-16, -1) as A_log's init draws it, B and
-    C scaled by N^-1/2, a nonzero carried-in state; the last ``pad`` rows
-    have dt = 0 (a padded serving chunk)."""
-    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
-    x = rnd(B, S, SSD_NH, SSD_HD).to(dtype)
-    dt = torch.nn.functional.softplus(rnd(B, S, SSD_NH))
-    if pad:
-        dt[:, S - pad:] = 0
-    A = -(1.0 + 15.0 * torch.rand(SSD_NH, generator=gen, device="cuda"))
-    Bm = (rnd(B, S, SSD_N) * SSD_N ** -0.5).to(dtype)
-    Cm = (rnd(B, S, SSD_N) * SSD_N ** -0.5).to(dtype)
-    h0 = 0.1 * rnd(B, SSD_NH, SSD_HD, SSD_N)
-    return x, dt, A, Bm, Cm, h0
-
-
 def phase_parity_ssm():
     """The scan kernel vs its plain version at mamba2-780m widths."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_inputs, ssd_scan_plain
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for S in (1, 50, 160, 256, 1000):
             pad = S // 5
-            args = ssd_inputs(gen, 2, S, dtype, pad=pad)
+            args = ssd_inputs(gen, 2, S, SSD_NH, SSD_HD, SSD_N, dtype,
+                              pad=pad)
             y, h = ops.ssd_scan(*args, chunk=SSD_CHUNK)
             yp, hp = ssd_scan_plain(*args, chunk=SSD_CHUNK)
             ey, eh = _max_err(y, yp), _max_err(h, hp)
@@ -513,14 +499,19 @@ def phase_parity_ssm():
 
 
 def ssd_bound(B, S, chunk, es):
-    """(flops, bytes) of one scan call, as the TPU kernel performs it."""
+    """(flops, bytes) the scan needs at least: per (batch row, chunk of Q
+    rows) C B^T over the causal triangle of T = Q(Q+1)/2 pairs once (B
+    and C are shared by the heads), and per head the triangle's product
+    with x, C H_in^T and the state update; x, dt, B, C, h0 and A read
+    once, y and h written once."""
     flops = 0
     for c0 in range(0, S, chunk):
         Q = min(chunk, S - c0)
-        flops += B * SSD_NH * (2 * Q * Q * SSD_N + 2 * Q * Q * SSD_HD
-                               + 4 * Q * SSD_HD * SSD_N)
+        T = Q * (Q + 1) // 2
+        flops += B * (2 * T * SSD_N
+                      + SSD_NH * (2 * T * SSD_HD + 4 * Q * SSD_HD * SSD_N))
     nbytes = (2 * B * S * SSD_NH * SSD_HD * es        # x read, y written
-              + 2 * B * S * SSD_NH * 4                # dt, dtA
+              + B * S * SSD_NH * 4 + SSD_NH * 4       # dt, A
               + 2 * B * S * SSD_N * es                # B, C
               + 2 * B * SSD_NH * SSD_HD * SSD_N * 4)  # h0 read, h written
     return flops, nbytes
@@ -530,12 +521,12 @@ def phase_timing_ssm():
     """The scan kernel and its plain version in bf16 at the slice's
     shapes: one 160-token cold chunk (B = 1) and a 4 x 64 resume batch."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_inputs, ssd_scan_plain
     gen = torch.Generator(device="cuda").manual_seed(5)
     dtype, es = torch.bfloat16, 2
     res = {}
     for what, B, S in (("cold chunk", 1, 160), ("resume batch", 4, 64)):
-        args = ssd_inputs(gen, B, S, dtype)
+        args = ssd_inputs(gen, B, S, SSD_NH, SSD_HD, SSD_N, dtype)
         bound, by = _bound_ms(*ssd_bound(B, S, SSD_CHUNK, es), dtype)
         r = dict(ms=_time_ms(lambda: ops.ssd_scan(*args, chunk=SSD_CHUNK)),
                  plain_ms=_time_ms(lambda: ssd_scan_plain(

@@ -21,9 +21,11 @@
 // unpadded chunk, so a session's tokens cannot depend on its padding.
 //
 // What bounds it on the H100: at the serving shapes (Q <= 256 rows,
-// hd 64, N 128) bytes: 2Q^2 N + 2Q^2 hd + 4Q hd N flops per (b, head,
-// chunk), as the TPU kernel performs them, against x, dt, dtA, B, C, h0
-// read once and y, h written once.  This first version is neither: it is a
+// hd 64, N 128) bytes.  The least work per (b, chunk) is C B^T over the
+// causal triangle once (B and C are shared by the heads), then per head
+// the triangle's product with x, C H_in^T and the state update: with
+// T = Q(Q+1)/2, 2TN + nh (2T hd + 4Q hd N) flops, against x, dt, B, C,
+// h0 and A read once and y, h written once.  This first version is neither: it is a
 // simple CUDA-core kernel, one block of 256 threads per (head, batch
 // row) looping over the chunks in order (the TPU's sequential chunk grid
 // axis becomes that loop), so a 160-token chunk of mamba2-780m runs 48
@@ -267,8 +269,6 @@ int dispatch_shape(const void* x, const void* dt, const void* A, const void* Bm,
                    int S, int nh, int hd, int N, int chunk, cudaStream_t st) {
   if (hd == 64 && N == 128)
     return launch<T, 64, 128>(x, dt, A, Bm, Cm, h0, y, hout, B, S, nh, chunk, st);
-  if (hd == 64 && N == 64)
-    return launch<T, 64, 64>(x, dt, A, Bm, Cm, h0, y, hout, B, S, nh, chunk, st);
   if (hd == 32 && N == 16)
     return launch<T, 32, 16>(x, dt, A, Bm, Cm, h0, y, hout, B, S, nh, chunk, st);
   return (int)cudaErrorInvalidValue;

@@ -21,7 +21,7 @@ from repro_torch.kernels import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # (hd, N) pairs the CUDA kernel is instantiated for
-SHAPES = ((64, 128), (64, 64), (32, 16))
+SHAPES = ((64, 128), (32, 16))
 MAX_CHUNK = 256
 
 
@@ -61,6 +61,26 @@ def ssd_scan_plain(x, dt, A, Bm, Cm, h0, *, chunk: int):
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :S] if ys else xf[:, :0]
     return y.to(x.dtype), H
+
+
+def ssd_inputs(gen, B, S, nh, hd, N, dtype, *, pad=0):
+    """Scan inputs at the magnitude the model path feeds the kernel (|y|
+    of order 1), drawn from ``gen`` on its device: post-softplus dt, A in
+    [-16, -1) as A_log's init draws it, B and C scaled by N^-1/2, a
+    nonzero carried-in state; the last ``pad`` rows have dt = 0 (a padded
+    serving chunk).  For the card checks of the kernel against
+    ``ssd_scan_plain``."""
+    dev = gen.device
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    x = rnd(B, S, nh, hd).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(B, S, nh))
+    if pad:
+        dt[:, S - pad:] = 0
+    A = -(1.0 + 15.0 * torch.rand(nh, generator=gen, device=dev))
+    Bm = (rnd(B, S, N) * N ** -0.5).to(dtype)
+    Cm = (rnd(B, S, N) * N ** -0.5).to(dtype)
+    h0 = 0.1 * rnd(B, nh, hd, N)
+    return x, dt, A, Bm, Cm, h0
 
 
 def ssd_scan_cuda(x, dt, A, Bm, Cm, h0, *, chunk: int):

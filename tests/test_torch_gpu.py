@@ -17,6 +17,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_paged_plain, decode_attention_plain, paged_gather)
 from repro_torch.kernels.prefill_attention import (  # noqa: E402
     prefill_attention_paged_plain, prefill_attention_plain)
+from repro_torch.kernels.ssd_scan import ssd_inputs  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 HEADS = [(16, 2, 128), (15, 5, 64), (28, 4, 128), (8, 2, 64)]
@@ -141,24 +142,10 @@ def test_cuda_paged_wrappers_reject_bad_tables(cuda):
 # the SSD chunked scan
 # ---------------------------------------------------------------------------
 
-def ssd_inputs(gen, Bn, S, nh, hd, N, dtype):
-    """Inputs at the magnitude the model path feeds the scan (|y| of
-    order 1): post-softplus dt, A in [-16, -1) as A_log's init draws it,
-    B and C scaled by N^-1/2, a nonzero carried-in state."""
-    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
-    x = rnd(Bn, S, nh, hd).to(dtype)
-    dt = torch.nn.functional.softplus(rnd(Bn, S, nh))
-    A = -(1.0 + 15.0 * torch.rand(nh, generator=gen, device="cuda"))
-    Bm = (rnd(Bn, S, N) * N ** -0.5).to(dtype)
-    Cm = (rnd(Bn, S, N) * N ** -0.5).to(dtype)
-    h0 = 0.1 * rnd(Bn, nh, hd, N)
-    return x, dt, A, Bm, Cm, h0
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("chunk", [16, 64, 256])
-@pytest.mark.parametrize("hd,N", [(64, 128), (32, 16), (64, 64)])
+@pytest.mark.parametrize("hd,N", [(64, 128), (32, 16)])
 def test_cuda_ssd_scan_matches_plain(cuda, dtype, chunk, hd, N):
     """The kernel against its plain version, S not a multiple of the
     chunk (and shorter than one), y and the final state."""
