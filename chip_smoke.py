@@ -10,8 +10,8 @@ failure:
              csrc`` (one nvcc per source, in parallel) and prints
              ptxas's register / shared-memory / spill lines.
 3. parity  — each kernel against its plain PyTorch version at the main
-             path's shapes (Qwen2.5-3B heads 16/2/128 and SmolLM-360M
-             heads 15/5/64, S_max 8192, ragged lengths to 8000, prefill
+             path's shapes (Qwen2.5-3B heads 16/2/128, SmolLM-360M heads
+             15/5/64 and OLMoE-1B-7B heads 16/16/128, S_max 8192, ragged lengths to 8000, prefill
              chunks at offsets 0 and > 0; slab: a strided cache view;
              paged: page 64, shuffled tables in which two rows share
              pages), f32 within 1e-4 and bf16 within 2e-2 max abs error.
@@ -71,6 +71,32 @@ Mamba-2 (the SSD chunked scan, ``ssd_scan``):
              launches > 0 and the four attention kernels' 0; the pool line
              prints the state copies; then the profile of its forwards.
 
+MoE (the grouped matmul of the experts, ``moe_gmm``):
+
+3-4.       — parity of the grouped matmul at OLMoE-1B-7B's expert widths
+             (64 experts, d 2048, f 1024): up and down products for C in
+             {1, 6, 25, 50, 160}, dense mode's expert-stride-0 view at C 6
+             and 160, and the JAX kernel test's shapes, f32 within 1e-4
+             and bf16 within 2e-2; timed in bf16 beside its plain version,
+             one ``torch.bmm`` (timed only here) and the bound
+             max(2ECdf / 989e12, bytes / 3.35e12) (x read once, the [C, d]
+             tokens under the broadcast; w read once; the output written
+             once) at dense decode (C 6), a gmm cold chunk (C 25) and a
+             dense cold chunk (C 160), and the down product at C 6.
+16-17. identity_moe and its paged twin — float32 OLMoE-1B-7B widths cut
+             to 4 layers, engine ``moe_mode="dense"``, 3 agents, slab then
+             paged (radix): every stream equals the isolated greedy oracle
+             (a mismatch prints the oracle's top-2 margin).
+18-19. slice_moe and profile_moe — full-width, full-depth OLMoE-1B-7B in
+             bf16 through ``repro_torch.launch.serve``'s closed loop (4
+             agents, react, max_seq 8192, slab, the engine's default
+             ``moe_mode="dense"``): every session finishes, ``moe_gmm`` and
+             the slab attention kernels launch, the others do not, and
+             ``moe_gmm`` launches 48 times per forward (3 per layer); then
+             the profile of its forwards under "dense" and again under
+             "gmm" on the same weights.  Every earlier slice asserts that
+             ``moe_gmm`` never launched.
+
 The last lines are the kernel list, the nvidia-smi line, the kernel JSON
 line and the result JSON line.
 """
@@ -98,6 +124,7 @@ PAGE = 64
 SLAB_KERNELS = ("flash_prefill", "flash_decode")
 PAGED_KERNELS = ("flash_prefill_paged", "flash_decode_paged")
 SSM_KERNELS = ("ssd_scan",)
+MOE_KERNELS = ("moe_gmm",)
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 SOURCES = {
     "flash_prefill": ("src/repro_torch/kernels/csrc/prefill_attention.cu",
@@ -111,6 +138,8 @@ SOURCES = {
                            "src/repro/kernels/decode_attention.py:82"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:67"),
+    "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
+                "src/repro/kernels/moe_gmm.py:42"),
 }
 
 
@@ -158,6 +187,11 @@ def _max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
+# Qwen2.5-3B, SmolLM-360M and OLMoE-1B-7B heads (H, Hk, hd): query
+# groups 8, 3 and 1
+PARITY_HEADS = ((16, 2, 128), (15, 5, 64), (16, 16, 128))
+
+
 def phase_parity():
     """Kernel vs plain version; returns the worst error per kernel."""
     from repro_torch.kernels import ops
@@ -167,7 +201,7 @@ def phase_parity():
     worst = {"flash_prefill": 0.0, "flash_decode": 0.0}
     S, B = 8192, 6
     lens = [1, 37, 1000, 3500, 8000, 5000]
-    for H, Hk, hd in ((16, 2, 128), (15, 5, 64)):
+    for H, Hk, hd in PARITY_HEADS:
         for dtype in (torch.bfloat16, torch.float32):
             # a strided cache view: every other KV head of a wider buffer
             wide_k = _rand(gen, (B, S, 2 * Hk, hd), dtype)
@@ -236,7 +270,7 @@ def phase_parity_paged():
     S, B = 8192, 6
     pmax, P = S // PAGE, B * (S // PAGE)
     lens = [3500, 1000, 1, 37, 8000, 5000]
-    for H, Hk, hd in ((16, 2, 128), (15, 5, 64)):
+    for H, Hk, hd in PARITY_HEADS:
         for dtype in (torch.bfloat16, torch.float32):
             ka = _rand(gen, (P + 1, PAGE, Hk, hd), dtype)
             va = _rand(gen, (P + 1, PAGE, Hk, hd), dtype)
@@ -541,6 +575,92 @@ def phase_timing_ssm():
     return res
 
 
+# OLMoE-1B-7B's expert widths
+MOE_E, MOE_D, MOE_F = 64, 2048, 1024
+
+
+def _gmm_inputs(gen, E, C, d, f, dtype, *, broadcast=False):
+    """x ~ N(0, 1) and w ~ N(0, 1/d), the magnitudes of the model path;
+    ``broadcast``: x is dense mode's expert-stride-0 view of [C, d]."""
+    if broadcast:
+        x = _rand(gen, (C, d), dtype).expand(E, C, d)
+    else:
+        x = _rand(gen, (E, C, d), dtype)
+    w = (torch.randn((E, d, f), generator=gen, device="cuda")
+         * d ** -0.5).to(dtype)
+    return x, w
+
+
+def phase_parity_moe():
+    """The grouped matmul vs its plain version: OLMoE's up/gate and down
+    products over the C of each serving call, dense mode's stride-0 view,
+    and the JAX kernel test's shapes."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gmm import gmm_plain
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = ([("up", MOE_E, C, MOE_D, MOE_F, False)
+              for C in (1, 6, 25, 50, 160)]
+             + [("down", MOE_E, C, MOE_F, MOE_D, False)
+                for C in (1, 6, 25, 50, 160)]
+             + [("up stride-0", MOE_E, C, MOE_D, MOE_F, True)
+                for C in (6, 160)]
+             + [("jax test", E, C, d, f, False)
+                for E, C, d, f in ((4, 32, 64, 96), (2, 50, 48, 40),
+                                   (8, 16, 128, 256))])
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for what, E, C, d, f, bc in cases:
+            x, w = _gmm_inputs(gen, E, C, d, f, dtype, broadcast=bc)
+            got = ops.moe_gmm(x, w)
+            err = _max_err(got, gmm_plain(x, w))
+            torch.cuda.synchronize()
+            log(f"[parity_moe] {what} E/C/d/f={E}/{C}/{d}/{f} "
+                f"{str(dtype)[6:]} x_strides={tuple(x.stride())} "
+                f"max_abs_err={err:.3e}")
+            assert got.shape == (E, C, f) and got.dtype == dtype
+            assert err <= TOL[dtype], ("moe_gmm", what, E, C, d, f, err)
+            worst = max(worst, err)
+    return {"moe_gmm": worst}
+
+
+def gmm_bound(E, C, d, f, es, broadcast):
+    """(flops, bytes) of one call: 2ECdf; x read once (the [C, d] tokens
+    under dense mode's broadcast), w read once, the output written once."""
+    x_bytes = (C if broadcast else E * C) * d * es
+    return 2 * E * C * d * f, x_bytes + E * d * f * es + E * C * f * es
+
+
+def phase_timing_moe():
+    """The kernel, its plain version and one ``torch.bmm`` (the library
+    call computing the same function, timed here only) in bf16 at
+    OLMoE's serving calls: dense decode (6 lanes, stride-0 view), a gmm
+    160-token cold chunk (C = 25), a dense 160-token chunk (stride-0 view)
+    for the up projection, and the down projection at dense decode."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gmm import gmm_plain
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dtype, es = torch.bfloat16, 2
+    res = {}
+    for what, C, d, f, bc in (("up dense decode", 6, MOE_D, MOE_F, True),
+                              ("up gmm cold chunk", 25, MOE_D, MOE_F, False),
+                              ("up dense cold chunk", 160, MOE_D, MOE_F,
+                               True),
+                              ("down dense decode", 6, MOE_F, MOE_D, False)):
+        x, w = _gmm_inputs(gen, MOE_E, C, d, f, dtype, broadcast=bc)
+        bound, by = _bound_ms(*gmm_bound(MOE_E, C, d, f, es, bc), dtype)
+        r = dict(ms=_time_ms(lambda: ops.moe_gmm(x, w)),
+                 plain_ms=_time_ms(lambda: gmm_plain(x, w)),
+                 library_ms=_time_ms(lambda: torch.bmm(x, w)),
+                 bound_ms=bound, bound_by=by)
+        log(f"[timing_moe] moe_gmm {what} E/C/d/f={MOE_E}/{C}/{d}/{f} bf16: "
+            f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} (torch.bmm) "
+            f"bound_ms={bound:.5f} ({by})")
+        if what == "up dense decode":
+            res["moe_gmm"] = r
+    return res
+
+
 def free_device_memory() -> None:
     """Release what a finished phase dropped.  An engine holds reference
     cycles (its telemetry gauges call back into it), so after ``del`` its
@@ -551,25 +671,30 @@ def free_device_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_identity(paged: bool):
+def phase_identity(paged: bool, arch: str = "qwen2.5-3b"):
+    """f32 engine streams == the isolated greedy oracle (the engine's
+    default ``moe_mode`` "dense", which keeps lanes independent)."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import init_params
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.serving.oracle import oracle_streams
     from repro_torch.serving.workload import make_workload
     torch.backends.cuda.matmul.allow_tf32 = False       # full f32 products
-    tag = "identity_paged" if paged else "identity"
-    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=4,
+    tag = ("identity_moe" if arch == "olmoe-1b-7b" else "identity") + (
+        "_paged" if paged else "")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=4,
                               kv_layout="paged" if paged else "slab",
                               kv_page_size=PAGE)
     log(f"[{tag}] {cfg.name} full width, depth cut to "
-        f"{cfg.num_layers} of 36 layers, float32, {cfg.kv_layout} layout")
+        f"{cfg.num_layers} of {full.num_layers} layers, float32, "
+        f"{cfg.kv_layout} layout")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          torch.float32)
     kw = dict(num_slots=5, max_seq=2048)
     ecfg = EngineConfig(cycle_budget=160, granularity=16,
                         control_interval_s=0.1, autotune_chunks=False,
-                        record_events=True, **kw)
+                        record_events=True, moe_mode="dense", **kw)
     # paged: seed 9's second agent cuts the system prompt shorter than the
     # first (a radix hit inside a registered prefix), its third longer (a
     # partial hit)
@@ -588,8 +713,12 @@ def phase_identity(paged: bool):
     for s in sessions:
         want = sum(t.decode_len for t in s.turns)
         assert s.output_tokens() == want, (s.session_id, s.output_tokens())
-        assert streams[s.session_id] == oracle[s.session_id], \
-            (s.session_id, streams[s.session_id], oracle[s.session_id])
+        got = streams[s.session_id]
+        if got != oracle[s.session_id]:
+            step, m = first_divergence_margin(cfg, params, s, got, kw)
+            raise AssertionError(
+                f"{tag}: session {s.session_id} leaves the oracle at step "
+                f"{step}; the oracle's top-2 logit margin there is {m:.3e}")
     extra = ""
     if paged:
         st = eng.pool.stats
@@ -623,7 +752,7 @@ def first_divergence_margin(cfg, params, session, got, kw):
     from repro_torch.serving.engine import get_executables
     from repro_torch.serving.kvcache import KVCachePool
     cfg = dataclasses.replace(cfg, kv_layout="slab")
-    ex = get_executables(cfg)
+    ex = get_executables(cfg, "dense")
     pool = KVCachePool(cfg, kw["num_slots"], kw["max_seq"], torch.float32,
                        "cuda")
     i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device="cuda")
@@ -726,8 +855,9 @@ def phase_identity_ssm(hybrid: bool):
 def phase_slice(paged: bool, arch: str = "qwen2.5-3b"):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    ssm = arch == "mamba2-780m"
-    tag = ("slice_ssm" if ssm else "slice") + ("_paged" if paged else "")
+    ssm, moe = arch == "mamba2-780m", arch == "olmoe-1b-7b"
+    tag = ("slice_ssm" if ssm else "slice_moe" if moe else "slice") + (
+        "_paged" if paged else "")
     layout = (["--kv-layout", "paged", "--kv-page-size", str(PAGE)]
               if paged else [])
     args = serve.parse_args([
@@ -748,16 +878,22 @@ def phase_slice(paged: bool, arch: str = "qwen2.5-3b"):
         want = sum(t.decode_len for t in s.turns)
         assert s.output_tokens() == want, (s.session_id, s.output_tokens(),
                                            want)
-    own, other = ((PAGED_KERNELS, SLAB_KERNELS) if paged
-                  else (SLAB_KERNELS, PAGED_KERNELS))
-    if ssm:
-        own, other = SSM_KERNELS, SLAB_KERNELS + PAGED_KERNELS
-    else:
-        other = other + SSM_KERNELS
-    for name in own:
-        assert launches[name] > 0, f"{name} was never launched on the path"
-    for name in other:
-        assert launches[name] == 0, f"{name} was launched on the {tag} path"
+    attn = PAGED_KERNELS if paged else SLAB_KERNELS
+    own = SSM_KERNELS if ssm else attn + (MOE_KERNELS if moe else ())
+    for name in SOURCES:
+        if name in own:
+            assert launches[name] > 0, f"{name} was never launched on the path"
+        else:
+            assert launches[name] == 0, f"{name} was launched on the {tag} path"
+    if moe:
+        # every OLMoE layer is attention + MoE: one attention launch and
+        # three expert products (up, gate, down) per layer per forward
+        L = eng.mcfg.num_layers
+        forwards, rest = divmod(sum(launches[k] for k in attn), L)
+        assert rest == 0 and launches["moe_gmm"] == 3 * L * forwards, \
+            (launches, L)
+        log(f"[{tag}] forwards={forwards}: moe_gmm launches "
+            f"{launches['moe_gmm']} = {3 * L} per forward")
     toks = sum(s.output_tokens() for s in sessions)
     prompt = sum(len(t.prefill_tokens) for s in sessions for t in s.turns)
     log(f"[{tag}] {serve.ServingReport.HEADER}")
@@ -794,11 +930,13 @@ def _device_us(e):
     return 0.0
 
 
-def phase_profile(eng, paged: bool, tag: str = "profile"):
+def phase_profile(eng, paged: bool, tag: str = "profile",
+                  moe_mode: str = "dense"):
     """Where a slice step's time goes: the slice engine's own forwards,
     timed with the host clock around a synchronize and traced with
     torch.profiler over the device alone (time by kernel, busy share).
-    Paged: every slot maps its own pages, in order."""
+    Paged: every slot maps its own pages, in order.  ``moe_mode``: the
+    MoE FFN path of the forwards (the engine's is "dense")."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import (forward_decode_megastep,
                                     forward_prefill, forward_resume_batch)
@@ -812,13 +950,14 @@ def phase_profile(eng, paged: bool, tag: str = "profile"):
         bt = torch.arange(B * pmax, dtype=torch.int32,
                           device="cuda").reshape(B, pmax)
         one = {"block_tables": bt[:1]}
+    one["moe_mode"] = moe_mode
     work = {
         "decode megastep K=8, 6 lanes at 3500 rows": lambda: (
             forward_decode_megastep(params, cfg, i32([0] * B), cache,
                                     i32([3500] * B),
                                     torch.ones(B, dtype=torch.bool,
                                                device="cuda"), num_steps=8,
-                                    block_tables=bt)),
+                                    block_tables=bt, moe_mode=moe_mode)),
         "cold chunk 160 tokens at offset 3000": lambda: forward_prefill(
             params, cfg, torch.zeros((1, 160), dtype=torch.int32,
                                      device="cuda"), cache, i32([3000]),
@@ -829,7 +968,8 @@ def phase_profile(eng, paged: bool, tag: str = "profile"):
                                              device="cuda"), cache,
                                  i32([0, 1, 2, 3]),
                                  i32([3100, 3600, 4200, 2900]),
-                                 i32([63] * 4), block_tables=bt)),
+                                 i32([63] * 4), block_tables=bt,
+                                 moe_mode=moe_mode)),
     }
     for what, fn in work.items():
         fn()
@@ -857,9 +997,11 @@ def main() -> int:
     worst = phase_parity()
     worst.update(phase_parity_paged())
     worst.update(phase_parity_ssm())
+    worst.update(phase_parity_moe())
     timing = phase_timing()
     timing.update(phase_timing_paged())
     timing.update(phase_timing_ssm())
+    timing.update(phase_timing_moe())
     phase_identity(paged=False)
     launches, eng = phase_slice(paged=False)
     phase_profile(eng, paged=False)
@@ -878,11 +1020,19 @@ def main() -> int:
     free_device_memory()
     launches_ssm_paged, eng = phase_slice(paged=True, arch="mamba2-780m")
     phase_profile(eng, paged=True, tag="profile_ssm")
+    del eng
+    free_device_memory()
+    phase_identity(paged=False, arch="olmoe-1b-7b")
+    phase_identity(paged=True, arch="olmoe-1b-7b")
+    launches_moe, eng = phase_slice(paged=False, arch="olmoe-1b-7b")
+    phase_profile(eng, paged=False, tag="profile_moe", moe_mode="dense")
+    phase_profile(eng, paged=False, tag="profile_moe_gmm", moe_mode="gmm")
     # each kernel's launches are those of the slice that runs its path
     # (the scan: the slab Mamba-2 slice; its paged twin's count is in the
-    # slice_ssm_paged line)
+    # slice_ssm_paged line; the grouped matmul: slice_moe)
     launches.update({k: launches_paged[k] for k in PAGED_KERNELS})
     launches.update({k: launches_ssm[k] for k in SSM_KERNELS})
+    launches.update({k: launches_moe[k] for k in MOE_KERNELS})
     log("kernels: " + "; ".join(
         f"{k} parity=ok max_abs_err={worst[k]:.3e} launches={launches[k]}"
         for k in SOURCES))

@@ -4,7 +4,7 @@
 built from the same keyword arguments describes the same model in both
 packages.  ``reduced()`` derives the CPU-smoke variant of the same family
 (≤2 layers, d_model ≤ 256).  The registry lists the architectures the
-port runs (dense decoders and the attention-free Mamba-2); asking for a
+port runs (dense and MoE decoders, Mamba-2 and hybrids); asking for a
 known architecture whose family is not ported yet raises
 ``NotImplementedError``.
 """
@@ -96,6 +96,9 @@ class ModelConfig:
                     else "ssm")
         return "attn"
 
+    def layer_has_moe(self, i: int) -> bool:
+        return self.moe is not None and (i % self.moe.every) == (self.moe.every - 1)
+
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Same family, shrunk per contract: ≤2 layers, d_model ≤ 256."""
@@ -131,17 +134,19 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
 
 
 # Architectures the port runs (dense decoders: the paper's testbed model
-# and the smallest smoke architecture; the attention-free Mamba-2 SLM).
+# and the smallest smoke architecture; the attention-free Mamba-2 SLM;
+# the MoE decoders and the Jamba hybrid with MoE).
 ARCH_MODULES = {
     "smollm-360m": "smollm_360m",
     "qwen2.5-3b": "qwen2_5_3b",
     "mamba2-780m": "mamba2_780m",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "jamba-1.5-large-398b": "jamba_1_5_large",
 }
 
 # Architectures of the JAX package that the port does not run yet.
 NOT_PORTED = {
-    "mixtral-8x22b": "moe", "olmoe-1b-7b": "moe",
-    "jamba-1.5-large-398b": "hybrid",
     "hubert-xlarge": "audio", "qwen2-vl-7b": "vlm",
     "starcoder2-15b": "dense", "llama3.2-3b": "dense",
     "phi4-mini-3.8b": "dense", "qwen2.5-7b": "dense", "llama3-8b": "dense",

@@ -1,7 +1,8 @@
 """Public kernel wrappers: check the arguments, then dispatch on the
 tensors' device.  Slab caches go to ``flash_prefill``/``flash_decode``,
 the paged arena with its block tables to ``flash_prefill_paged``/
-``flash_decode_paged``; the Mamba-2 chunked scan is ``ssd_scan``.
+``flash_decode_paged``; the Mamba-2 chunked scan is ``ssd_scan``; the
+MoE experts' grouped matmul is ``moe_gmm``.
 
 A CUDA tensor launches the hand-written kernel (``csrc/*.cu``, built at
 first use by ``_build``) or raises: there is no fallback to the plain
@@ -25,12 +26,14 @@ from repro_torch.kernels.decode_attention import (
 from repro_torch.kernels.prefill_attention import (
     prefill_attention_cuda, prefill_attention_paged_cuda,
     prefill_attention_paged_plain, prefill_attention_plain)
+from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
 from repro_torch.kernels.ssd_scan import (MAX_CHUNK, SHAPES, ssd_scan_cuda,
                                           ssd_scan_plain)
 
 LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "flash_decode": 0,
                             "flash_prefill_paged": 0,
-                            "flash_decode_paged": 0, "ssd_scan": 0}
+                            "flash_decode_paged": 0, "ssd_scan": 0,
+                            "moe_gmm": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
@@ -242,4 +245,41 @@ def ssd_scan(x, dt, A, Bm, Cm, h0, *, chunk: int = 128):
         return torch.empty_like(x), h0.clone()
     out = ssd_scan_cuda(x, dt, A, Bm, Cm, h0, chunk=chunk)
     LAUNCHES["ssd_scan"] += 1
+    return out
+
+
+def moe_gmm(x, w):
+    """Grouped expert matmul. x: [E, C, d]; w: [E, d, f] of one type
+    (f32/bf16) -> [E, C, f] in that type, accumulated in f32.  x may be
+    a broadcast view with expert stride 0 (it is read in place).  On CUDA
+    the kernel takes d and f multiples of 8, a unit stride on the last
+    dim and 16-byte aligned rows; anything else raises."""
+    if (x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0]
+            or x.shape[2] != w.shape[1]):
+        raise ValueError(f"moe_gmm: x must be [E, C, d] and w [E, d, f]; "
+                         f"got {tuple(x.shape)}, {tuple(w.shape)}")
+    if x.dtype != w.dtype or x.dtype not in _DTYPES:
+        raise TypeError(f"moe_gmm: x and w must share one of {_DTYPES}; got "
+                        f"{x.dtype}, {w.dtype}")
+    if x.device != w.device:
+        raise ValueError(f"moe_gmm: x on {x.device}, w on {w.device}")
+    if not x.is_cuda:
+        return gmm_plain(x, w)
+    E, C, d = x.shape
+    f = w.shape[2]
+    if d % 8 or f % 8:
+        raise ValueError(f"moe_gmm: the CUDA kernel takes d and f multiples "
+                         f"of 8, got d={d}, f={f}")
+    vec = 16 // x.element_size()            # the kernel's 16-byte loads
+    for t in (x, w):
+        # a size-1 dim's stride is never used for an address
+        outer = [s for n, s in zip(t.shape[:2], t.stride()[:2]) if n > 1]
+        if ((t.shape[2] > 1 and t.stride(2) != 1) or t.data_ptr() % 16
+                or any(s % vec for s in outer)):
+            raise ValueError("moe_gmm: rows need a unit stride on the last "
+                             "dim and 16-byte alignment")
+    if E == 0 or C == 0 or f == 0:
+        return torch.zeros((E, C, f), dtype=x.dtype, device=x.device)
+    out = gmm_cuda(x, w)
+    LAUNCHES["moe_gmm"] += 1
     return out

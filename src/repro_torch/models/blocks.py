@@ -1,5 +1,5 @@
-"""Layer slots (attention or Mamba-2 mixer; MLP or no FFN) in prefill and
-decode modes.
+"""Layer slots (attention or Mamba-2 mixer; MLP, MoE or no FFN) in prefill
+and decode modes.
 
 A *layer slot* is described statically by ``LayerSpec``, as in the JAX
 package; ``models.model`` stacks identical slots across repeating groups.
@@ -27,19 +27,23 @@ from repro_torch.models.attention import (blocked_attention, decode_attention,
                                           prefill_attention_paged)
 from repro_torch.models.common import rms_norm
 from repro_torch.models.mlp import apply_mlp
+from repro_torch.models.moe import moe_output
 from repro_torch.models.rope import apply_rope
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     kind: str        # "attn" | "ssm"
-    ffn: str         # "mlp" | "none"
+    ffn: str         # "mlp" | "moe" | "none"
 
 
 def layer_specs_for_group(cfg: ModelConfig, group_size: int):
     """Static layout of one repeating group (layer i uses i % group_size)."""
-    return tuple(LayerSpec(kind=cfg.layer_kind(j),
-                           ffn="none" if cfg.d_ff == 0 else "mlp")
+    def ffn(j):
+        if cfg.d_ff == 0:
+            return "none"
+        return "moe" if cfg.layer_has_moe(j) else "mlp"
+    return tuple(LayerSpec(kind=cfg.layer_kind(j), ffn=ffn(j))
                  for j in range(group_size))
 
 
@@ -212,12 +216,15 @@ def apply_ssm_mixer(p, x, cfg: ModelConfig, *, mode: str, layer_cache,
 def apply_layer(lp, x, cfg: ModelConfig, spec: LayerSpec, *, mode: str,
                 positions, lengths, layer_cache, window: int,
                 write_positions=None, slot_idx=None, block_tables=None,
-                paged_index=None, active=None,
-                ssm_valid=None) -> torch.Tensor:
+                paged_index=None, active=None, ssm_valid=None,
+                moe_mode: str = "gmm", moe_capacity: float = 1.25,
+                moe_shards: int = 1) -> torch.Tensor:
     """Pre-norm residual block (attention or Mamba-2 mixer, then the MLP
-    unless the slot has none).  ``slot_idx`` names each row's slab cache
-    row for attention, and each row's state slot for Mamba-2 on both
-    layouts (the paged attention rows go through ``block_tables``)."""
+    or MoE FFN unless the slot has none).  ``slot_idx`` names each row's
+    slab cache row for attention, and each row's state slot for Mamba-2
+    on both layouts (the paged attention rows go through
+    ``block_tables``).  ``moe_*``: the MoE FFN's mode, capacity factor and
+    data shards; its aux loss is not computed on this (serving) path."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     if spec.kind == "attn":
         x = x + apply_attn_mixer(
@@ -233,4 +240,8 @@ def apply_layer(lp, x, cfg: ModelConfig, spec: LayerSpec, *, mode: str,
     if spec.ffn == "none":
         return x
     h = rms_norm(x, lp["norm2"], cfg.norm_eps)
+    if spec.ffn == "moe":
+        return x + moe_output(lp["ffn"], h, cfg.moe, cfg.act, mode=moe_mode,
+                              capacity_factor=moe_capacity,
+                              data_shards=moe_shards)
     return x + apply_mlp(lp["ffn"], h, cfg.act)

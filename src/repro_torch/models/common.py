@@ -8,7 +8,7 @@ def dense_init(gen: torch.Generator, shape, fan_in: int, dtype, device):
     """Normal x 1/sqrt(fan_in), drawn on ``device`` from ``gen`` (which
     must live on that device) and cast to ``dtype`` tensor by tensor."""
     x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (x * (1.0 / fan_in ** 0.5)).to(dtype)
+    return x.mul_(1.0 / fan_in ** 0.5).to(dtype)   # in place: one f32 copy
 
 
 def embed_init(gen: torch.Generator, shape, dtype, device):

@@ -1,11 +1,12 @@
 """Model assembly: stacked layer groups, a Python loop over them.
 
 Every architecture is ``G`` repetitions of a statically described group
-of ``gs`` layer slots (``group_layout``: gs = hybrid_period, or 1), as
-in the JAX package.  The parameters are a dict that mirrors the JAX
-pytree: ``params["groups"]["l{j}"]`` holds slot j's weights stacked along
-a leading group axis G (a dense decoder or a pure Mamba-2 stack has one
-slot, so G = num_layers).  The serving cache has the same keys: an
+of ``gs`` layer slots (``group_layout``: gs = lcm(hybrid_period,
+moe.every), e.g. Jamba: 9 groups x 8 slots), as in the JAX package.  The
+parameters are a dict that mirrors the JAX pytree:
+``params["groups"]["l{j}"]`` holds slot j's weights stacked along a
+leading group axis G (a dense, MoE or pure Mamba-2 stack has one slot,
+so G = num_layers).  The serving cache has the same keys: an
 attention slot holds {"k", "v"} with leaves [G, B, S_max, Hk, hd] (slab
 layout) or [G, P + 1, page, Hk, hd] (paged layout: a page arena
 addressed through per-slot block tables, the last page the write
@@ -28,10 +29,12 @@ Public entry points:
   forward_resume_batch            — M resume prefills packed in one call
 
 Every forward takes ``block_tables`` [B, P_max] int32 for the paged
-layout (None: slab).
+layout (None: slab), and ``moe_mode`` / ``moe_capacity`` / ``moe_shards``
+for the MoE slots (the JAX defaults: "gmm", 1.25, 1).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -50,11 +53,12 @@ POSITIONAL_CACHE_KEYS = frozenset({"k", "v", "ks", "vs"})
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if (cfg.family not in ("dense", "ssm", "hybrid") or cfg.moe is not None
-            or cfg.mrope or cfg.encoder_only):
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.mrope
+            or cfg.encoder_only):
         raise NotImplementedError(
-            f"{cfg.name}: only dense, Mamba-2 and hybrid (attention + "
-            f"Mamba-2, no MoE) decoders are ported (family {cfg.family!r})")
+            f"{cfg.name}: only dense, MoE, Mamba-2 and hybrid (attention + "
+            f"Mamba-2, with or without MoE) decoders are ported (family "
+            f"{cfg.family!r})")
     if cfg.family in ("ssm", "hybrid") and cfg.ssm is None:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} needs an "
                          f"SSMConfig")
@@ -63,7 +67,7 @@ def _check_ported(cfg: ModelConfig) -> None:
 def group_layout(cfg: ModelConfig) -> Tuple[int, int, Tuple[LayerSpec, ...]]:
     """(G, group_size, specs): ``G`` repetitions of ``group_size`` slots."""
     _check_ported(cfg)
-    gs = cfg.hybrid_period or 1
+    gs = math.lcm(cfg.hybrid_period or 1, cfg.moe.every if cfg.moe else 1)
     if cfg.num_layers % gs:
         raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not a "
                          f"multiple of the group size {gs}")
@@ -83,7 +87,15 @@ def _layer_shapes(cfg: ModelConfig, spec: LayerSpec, G: int):
         out["ssm"] = {k: ((G,) + shape, init, k in mamba2.F32_PARAMS)
                       for k, (shape, init)
                       in mamba2.mamba2_shapes(d, cfg.ssm).items()}
-    if spec.ffn != "none":
+    if spec.ffn == "moe":
+        E = cfg.moe.num_experts
+        out["norm2"] = ((G, d), ("ones",), False)
+        out["ffn"] = {"router": ((G, d, E), ("dense", d), False),
+                      "w_up": ((G, E, d, ff), ("dense", d), False),
+                      "w_down": ((G, E, ff, d), ("dense", ff), False)}
+        if cfg.act == "swiglu":
+            out["ffn"]["w_gate"] = ((G, E, d, ff), ("dense", d), False)
+    elif spec.ffn != "none":
         out["norm2"] = ((G, d), ("ones",), False)
         if cfg.act == "swiglu":
             out["ffn"] = {"w_gate": ((G, d, ff), ("dense", d), False),
@@ -235,7 +247,8 @@ def _layer_params(node, g: int):
 def _run_layers(params, x, cfg: ModelConfig, *, mode: str, positions,
                 lengths, cache, window: int, write_positions=None,
                 slot_idx=None, block_tables=None, active=None,
-                ssm_valid=None):
+                ssm_valid=None, moe_mode: str = "gmm",
+                moe_capacity: float = 1.25, moe_shards: int = 1):
     G, _, specs = group_layout(cfg)
     groups = params["groups"]
     paged_index = None
@@ -265,7 +278,8 @@ def _run_layers(params, x, cfg: ModelConfig, *, mode: str, positions,
                             write_positions=write_positions,
                             slot_idx=slot_idx, block_tables=block_tables,
                             paged_index=paged_index, active=active,
-                            ssm_valid=ssm_valid)
+                            ssm_valid=ssm_valid, moe_mode=moe_mode,
+                            moe_capacity=moe_capacity, moe_shards=moe_shards)
     return x
 
 
@@ -279,7 +293,9 @@ def _logits(params, cfg: ModelConfig, h):
 
 
 def forward_prefill(params, cfg: ModelConfig, tokens, cache, lengths, *,
-                    logit_idx=None, slot_idx=None, block_tables=None):
+                    logit_idx=None, slot_idx=None, block_tables=None,
+                    moe_mode: str = "gmm", moe_capacity: float = 1.25,
+                    moe_shards: int = 1):
     """Process a chunk (cold or resume prefill), writing into ``cache``.
 
     tokens: [M, S] appended at per-row offsets ``lengths`` [M].
@@ -298,7 +314,9 @@ def forward_prefill(params, cfg: ModelConfig, tokens, cache, lengths, *,
     h = _run_layers(params, x, cfg, mode="prefill", positions=positions,
                     lengths=lengths, cache=cache, window=cfg.sliding_window,
                     slot_idx=slot_idx, block_tables=block_tables,
-                    ssm_valid=None if logit_idx is None else logit_idx + 1)
+                    ssm_valid=None if logit_idx is None else logit_idx + 1,
+                    moe_mode=moe_mode, moe_capacity=moe_capacity,
+                    moe_shards=moe_shards)
     if logit_idx is None:
         h_last = h[:, -1]
     else:
@@ -307,7 +325,9 @@ def forward_prefill(params, cfg: ModelConfig, tokens, cache, lengths, *,
 
 
 def forward_decode(params, cfg: ModelConfig, tokens, cache, lengths, *,
-                   write_positions=None, block_tables=None, active=None):
+                   write_positions=None, block_tables=None, active=None,
+                   moe_mode: str = "gmm", moe_capacity: float = 1.25,
+                   moe_shards: int = 1):
     """One decode step. tokens: [B] (last sampled token per sequence).
     ``write_positions`` [B] decouples where the new K/V row lands from
     the attention valid length (default: ``lengths``; negative = the
@@ -318,7 +338,9 @@ def forward_decode(params, cfg: ModelConfig, tokens, cache, lengths, *,
     h = _run_layers(params, x, cfg, mode="decode", positions=lengths[:, None],
                     lengths=lengths, cache=cache, window=cfg.sliding_window,
                     write_positions=write_positions,
-                    block_tables=block_tables, active=active)
+                    block_tables=block_tables, active=active,
+                    moe_mode=moe_mode, moe_capacity=moe_capacity,
+                    moe_shards=moe_shards)
     return _logits(params, cfg, h[:, 0]), cache, lengths + 1
 
 
@@ -339,7 +361,8 @@ def _scratch_write_lengths(cache, lengths, active):
 
 
 def forward_decode_fused(params, cfg: ModelConfig, tokens, cache, lengths,
-                         active, *, block_tables=None):
+                         active, *, block_tables=None, moe_mode: str = "gmm",
+                         moe_capacity: float = 1.25, moe_shards: int = 1):
     """One decode step with greedy sampling and the length increment
     folded in, so an engine keeps ``tokens``/``lengths``/``active`` on the
     device and never syncs per token.
@@ -358,7 +381,8 @@ def forward_decode_fused(params, cfg: ModelConfig, tokens, cache, lengths,
         write_positions = _scratch_write_lengths(cache, lengths, active)
     logits, cache, _ = forward_decode(
         params, cfg, tokens, cache, lengths, write_positions=write_positions,
-        block_tables=block_tables, active=active)
+        block_tables=block_tables, active=active, moe_mode=moe_mode,
+        moe_capacity=moe_capacity, moe_shards=moe_shards)
     next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     next_tokens = torch.where(active, next_tokens, tokens)
     return next_tokens, cache, lengths + active.to(lengths.dtype)
@@ -366,7 +390,8 @@ def forward_decode_fused(params, cfg: ModelConfig, tokens, cache, lengths,
 
 def forward_decode_megastep(params, cfg: ModelConfig, tokens, cache,
                             lengths, active, *, num_steps: int,
-                            block_tables=None):
+                            block_tables=None, moe_mode: str = "gmm",
+                            moe_capacity: float = 1.25, moe_shards: int = 1):
     """``num_steps`` fused decode iterations (the JAX ``lax.scan`` as a
     loop).  Returns (tokens_seq [K, B], next_tokens [B], cache,
     new_lengths); ``tokens_seq[i]`` is the token emitted by step i
@@ -375,13 +400,16 @@ def forward_decode_megastep(params, cfg: ModelConfig, tokens, cache,
     for _ in range(num_steps):
         tokens, cache, lengths = forward_decode_fused(
             params, cfg, tokens, cache, lengths, active,
-            block_tables=block_tables)
+            block_tables=block_tables, moe_mode=moe_mode,
+            moe_capacity=moe_capacity, moe_shards=moe_shards)
         toks.append(tokens)
     return torch.stack(toks), tokens, cache, lengths
 
 
 def forward_resume_batch(params, cfg: ModelConfig, tokens, cache, slot_idx,
-                         lengths, logit_idx, *, block_tables=None):
+                         lengths, logit_idx, *, block_tables=None,
+                         moe_mode: str = "gmm", moe_capacity: float = 1.25,
+                         moe_shards: int = 1):
     """Batched resume prefill: M jobs packed as one [M, bucket] chunk.
 
     tokens: [M, S]; slot_idx: [M] (distinct cache slots); lengths: [M]
@@ -396,5 +424,6 @@ def forward_resume_batch(params, cfg: ModelConfig, tokens, cache, slot_idx,
     bt = None if block_tables is None else block_tables[slot_idx.long()]
     logits, cache, _ = forward_prefill(
         params, cfg, tokens, cache, lengths, logit_idx=logit_idx,
-        slot_idx=slot_idx, block_tables=bt)
+        slot_idx=slot_idx, block_tables=bt, moe_mode=moe_mode,
+        moe_capacity=moe_capacity, moe_shards=moe_shards)
     return logits, cache

@@ -84,6 +84,10 @@ class EngineConfig:
     max_seq: int = 1024
     cycle_budget: int = 320          # C: tokens of work per cycle
     granularity: int = 32            # g: slot granularity (C/g = 10 slots)
+    moe_mode: str = "dense"          # MoE FFN path of every executable:
+    #                                  "dense" keeps lanes independent;
+    #                                  "gmm" couples a call's rows through
+    #                                  the expert capacity
     control_interval_s: float = 0.25
     tpot_slo_ms: float = 50.0
     b_min: int = 32
@@ -149,11 +153,12 @@ class HotPathExecutables:
     megastep: Callable[[int], Callable]   # K -> K fused decode steps
 
 
-def get_executables(mcfg: ModelConfig) -> HotPathExecutables:
+def get_executables(mcfg: ModelConfig, moe_mode: str) -> HotPathExecutables:
     # ``*bt``: the paged layout's block tables (absent for the slab)
     def decode_step(params, cache, tokens, lengths, *bt):
         logits, cache, _ = forward_decode(params, mcfg, tokens, cache, lengths,
-                                          block_tables=bt[0] if bt else None)
+                                          block_tables=bt[0] if bt else None,
+                                          moe_mode=moe_mode)
         return logits, cache
 
     def prefill_step(params, cache, tokens, slot, length, logit_idx, *bt):
@@ -161,24 +166,28 @@ def get_executables(mcfg: ModelConfig) -> HotPathExecutables:
         # the row's slab rows and its recurrent states on both layouts
         logits, cache, _ = forward_prefill(
             params, mcfg, tokens, cache, length, logit_idx=logit_idx,
-            slot_idx=slot, block_tables=bt[0][slot.long()] if bt else None)
+            slot_idx=slot, block_tables=bt[0][slot.long()] if bt else None,
+            moe_mode=moe_mode)
         return logits[0], cache
 
     def fused_step(params, cache, tokens, lengths, active, *bt):
         return forward_decode_fused(params, mcfg, tokens, cache, lengths,
-                                    active, block_tables=bt[0] if bt else None)
+                                    active, block_tables=bt[0] if bt else None,
+                                    moe_mode=moe_mode)
 
     def megastep(num_steps: int) -> Callable:
         def mega_step(params, cache, tokens, lengths, active, *bt):
             return forward_decode_megastep(
                 params, mcfg, tokens, cache, lengths, active,
-                num_steps=num_steps, block_tables=bt[0] if bt else None)
+                num_steps=num_steps, block_tables=bt[0] if bt else None,
+                moe_mode=moe_mode)
         return mega_step
 
     def resume_step(params, cache, tokens, slots, lengths, logit_idx, *bt):
         return forward_resume_batch(params, mcfg, tokens, cache, slots,
                                     lengths, logit_idx,
-                                    block_tables=bt[0] if bt else None)
+                                    block_tables=bt[0] if bt else None,
+                                    moe_mode=moe_mode)
 
     return HotPathExecutables(decode=decode_step, prefill=prefill_step,
                               fused=fused_step, resume=resume_step,
@@ -327,7 +336,7 @@ class ServingEngine:
         self.thresholds = PhaseThresholds(resume_max_new=self.ecfg.b_max)
         self._buckets = _resume_buckets(self.ecfg)
 
-        self._ex = get_executables(model_cfg)
+        self._ex = get_executables(model_cfg, self.ecfg.moe_mode)
         self._prefill_fn = self._ex.prefill
         # resume batch sizes: powers of two up to the M cap (exact-M
         # dispatch — batches round *down* to a warmed size, no padding

@@ -21,12 +21,14 @@ from repro_torch.serving.kvcache import KVCachePool
 
 
 def oracle_streams(cfg, params, sessions, *, num_slots: int, max_seq: int,
-                   dtype=torch.float32, device="cuda") -> Dict[int, List[int]]:
+                   dtype=torch.float32, device="cuda",
+                   moe_mode: str = "dense") -> Dict[int, List[int]]:
     """{session_id: [token ids]} for each session decoded in isolation
-    in slot 0 of its own pool."""
+    in slot 0 of its own pool (under ``moe_mode="dense"`` the other
+    lanes cannot change slot 0's tokens)."""
     dev = resolve_device(device)
     cfg = dataclasses.replace(cfg, kv_layout="slab")
-    ex = get_executables(cfg)
+    ex = get_executables(cfg, moe_mode)
     i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)
     out = {}
     for s in sessions:

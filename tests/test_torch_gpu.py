@@ -20,7 +20,8 @@ from repro_torch.kernels.prefill_attention import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_inputs  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-HEADS = [(16, 2, 128), (15, 5, 64), (28, 4, 128), (8, 2, 64)]
+# (16, 16, 128): OLMoE-1B-7B's heads, query group 1
+HEADS = [(16, 2, 128), (15, 5, 64), (28, 4, 128), (8, 2, 64), (16, 16, 128)]
 
 
 @pytest.fixture
@@ -192,3 +193,71 @@ def test_cuda_ssd_scan_rejects_what_it_does_not_take(cuda):
     args = ssd_inputs(gen, 1, 300, 2, 64, 128, torch.float32)
     with pytest.raises(ValueError, match="256"):
         ops.ssd_scan(*args, chunk=300)
+
+
+# ---------------------------------------------------------------------------
+# the MoE grouped matmul
+# ---------------------------------------------------------------------------
+
+def _gmm_inputs(gen, E, C, d, f, dt):
+    """x ~ N(0, 1), w ~ N(0, 1/d): the model's magnitudes."""
+    x = torch.randn(E, C, d, generator=gen, device="cuda").to(dt)
+    w = (torch.randn(E, d, f, generator=gen, device="cuda")
+         * d ** -0.5).to(dt)
+    return x, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,d,f", [
+    (4, 32, 64, 96), (2, 50, 48, 40), (8, 16, 128, 256),   # the JAX test's
+    (64, 1, 2048, 1024), (64, 6, 2048, 1024), (64, 25, 2048, 1024),
+    (64, 160, 1024, 2048), (3, 7, 24, 8), (5, 33, 40, 136), (2, 65, 8, 16),
+])
+def test_cuda_moe_gmm_matches_plain(cuda, dtype, E, C, d, f):
+    """The kernel against its plain version: each C-tile size, ragged C,
+    d and f, and a launch counted per call."""
+    from repro_torch.kernels.moe_gmm import gmm_plain
+    tol, dt = TOL[dtype], getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(E + C + d + f)
+    x, w = _gmm_inputs(gen, E, C, d, f, dt)
+    before = ops.LAUNCHES["moe_gmm"]
+    got = ops.moe_gmm(x, w)
+    assert ops.LAUNCHES["moe_gmm"] == before + 1
+    want = gmm_plain(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (E, C, f)
+    assert _err(got, want) <= tol, _err(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [6, 37, 160])
+def test_cuda_moe_gmm_expert_stride_zero(cuda, dtype, T):
+    """Dense mode's broadcast view [E, T, d] (expert stride 0) is read in
+    place and gives the product of its copy; a strided w view too."""
+    from repro_torch.kernels.moe_gmm import gmm_plain
+    tol, dt = TOL[dtype], getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(T)
+    x2d = torch.randn(T, 256, generator=gen, device="cuda").to(dt)
+    wide = (torch.randn(8, 256, 2 * 128, generator=gen, device="cuda")
+            / 16).to(dt)
+    x, w = x2d.expand(8, T, 256), wide[:, :, 64:192]
+    assert x.stride(0) == 0 and not w.is_contiguous()
+    got = ops.moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert _err(got, gmm_plain(x.contiguous(), w.contiguous())) <= tol
+    assert torch.equal(got, ops.moe_gmm(x.contiguous(), w.contiguous()))
+
+
+@pytest.mark.gpu
+def test_cuda_moe_gmm_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(2, 4, 12, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.moe_gmm(x, torch.zeros(2, 12, 8, device="cuda"))
+    x = torch.zeros(2, 4, 16, device="cuda")
+    with pytest.raises(ValueError, match="unit stride"):
+        ops.moe_gmm(x, torch.zeros(2, 8, 16, device="cuda").transpose(1, 2))
+    with pytest.raises(TypeError):
+        ops.moe_gmm(x, torch.zeros(2, 16, 8, device="cuda",
+                                   dtype=torch.bfloat16))

@@ -127,7 +127,7 @@ def test_config_registry_matches_jax():
     for name in ("qwen2.5-3b", "smollm-360m"):
         assert _port_cfg(j_smoke(name)) == tbase.get_smoke_config(name)
     with pytest.raises(NotImplementedError):
-        tbase.get_config("mixtral-8x22b")
+        tbase.get_config("hubert-xlarge")
     with pytest.raises(KeyError):
         tbase.get_config("no-such-arch")
 

@@ -410,7 +410,7 @@ def test_config_registry_has_mamba2():
     assert [(s.kind, s.ffn) for s in specs] == [("attn", "mlp"),
                                                 ("ssm", "mlp")]
     with pytest.raises(NotImplementedError):
-        tbase.get_config("jamba-1.5-large-398b")
+        tbase.get_config("qwen2-vl-7b")
 
 
 def test_bf16_load_keeps_f32_leaves(weights):
