@@ -1,4 +1,4 @@
-"""Naive PyTorch oracles for the attention, SSD and grouped-matmul kernels.
+"""Naive PyTorch oracles for the attention and SSD kernels.
 
 Deliberately naive (full score matrices, repeated KV heads): the ground
 truth the kernels and their plain versions are tested against, never the
@@ -62,8 +62,3 @@ def naive_ssd(x, dt, Bm, Cm, A, D, h0=None):
         ys.append(torch.einsum("bhdn,bn->bhd", h, Cf[:, t]))
     y = torch.stack(ys, dim=1) + xf * D[None, None, :, None]
     return y.to(x.dtype), h
-
-
-def naive_gmm(x, w):
-    """Grouped expert matmul oracle: [E,C,d] x [E,d,f] -> [E,C,f]."""
-    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

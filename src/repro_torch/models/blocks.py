@@ -217,14 +217,14 @@ def apply_layer(lp, x, cfg: ModelConfig, spec: LayerSpec, *, mode: str,
                 positions, lengths, layer_cache, window: int,
                 write_positions=None, slot_idx=None, block_tables=None,
                 paged_index=None, active=None, ssm_valid=None,
-                moe_mode: str = "gmm", moe_capacity: float = 1.25,
-                moe_shards: int = 1) -> torch.Tensor:
+                moe_mode: str = "gmm") -> torch.Tensor:
     """Pre-norm residual block (attention or Mamba-2 mixer, then the MLP
     or MoE FFN unless the slot has none).  ``slot_idx`` names each row's
     slab cache row for attention, and each row's state slot for Mamba-2
     on both layouts (the paged attention rows go through
-    ``block_tables``).  ``moe_*``: the MoE FFN's mode, capacity factor and
-    data shards; its aux loss is not computed on this (serving) path."""
+    ``block_tables``).  ``moe_mode``: the MoE FFN's mode (at
+    ``moe_output``'s default capacity factor and one data shard); its aux
+    loss is not computed on this (serving) path."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     if spec.kind == "attn":
         x = x + apply_attn_mixer(
@@ -241,7 +241,5 @@ def apply_layer(lp, x, cfg: ModelConfig, spec: LayerSpec, *, mode: str,
         return x
     h = rms_norm(x, lp["norm2"], cfg.norm_eps)
     if spec.ffn == "moe":
-        return x + moe_output(lp["ffn"], h, cfg.moe, cfg.act, mode=moe_mode,
-                              capacity_factor=moe_capacity,
-                              data_shards=moe_shards)
+        return x + moe_output(lp["ffn"], h, cfg.moe, cfg.act, mode=moe_mode)
     return x + apply_mlp(lp["ffn"], h, cfg.act)

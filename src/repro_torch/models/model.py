@@ -29,8 +29,8 @@ Public entry points:
   forward_resume_batch            — M resume prefills packed in one call
 
 Every forward takes ``block_tables`` [B, P_max] int32 for the paged
-layout (None: slab), and ``moe_mode`` / ``moe_capacity`` / ``moe_shards``
-for the MoE slots (the JAX defaults: "gmm", 1.25, 1).
+layout (None: slab), and ``moe_mode`` for the MoE slots (the JAX
+default: "gmm").
 """
 from __future__ import annotations
 
@@ -247,8 +247,7 @@ def _layer_params(node, g: int):
 def _run_layers(params, x, cfg: ModelConfig, *, mode: str, positions,
                 lengths, cache, window: int, write_positions=None,
                 slot_idx=None, block_tables=None, active=None,
-                ssm_valid=None, moe_mode: str = "gmm",
-                moe_capacity: float = 1.25, moe_shards: int = 1):
+                ssm_valid=None, moe_mode: str = "gmm"):
     G, _, specs = group_layout(cfg)
     groups = params["groups"]
     paged_index = None
@@ -278,8 +277,7 @@ def _run_layers(params, x, cfg: ModelConfig, *, mode: str, positions,
                             write_positions=write_positions,
                             slot_idx=slot_idx, block_tables=block_tables,
                             paged_index=paged_index, active=active,
-                            ssm_valid=ssm_valid, moe_mode=moe_mode,
-                            moe_capacity=moe_capacity, moe_shards=moe_shards)
+                            ssm_valid=ssm_valid, moe_mode=moe_mode)
     return x
 
 
@@ -294,8 +292,7 @@ def _logits(params, cfg: ModelConfig, h):
 
 def forward_prefill(params, cfg: ModelConfig, tokens, cache, lengths, *,
                     logit_idx=None, slot_idx=None, block_tables=None,
-                    moe_mode: str = "gmm", moe_capacity: float = 1.25,
-                    moe_shards: int = 1):
+                    moe_mode: str = "gmm"):
     """Process a chunk (cold or resume prefill), writing into ``cache``.
 
     tokens: [M, S] appended at per-row offsets ``lengths`` [M].
@@ -315,8 +312,7 @@ def forward_prefill(params, cfg: ModelConfig, tokens, cache, lengths, *,
                     lengths=lengths, cache=cache, window=cfg.sliding_window,
                     slot_idx=slot_idx, block_tables=block_tables,
                     ssm_valid=None if logit_idx is None else logit_idx + 1,
-                    moe_mode=moe_mode, moe_capacity=moe_capacity,
-                    moe_shards=moe_shards)
+                    moe_mode=moe_mode)
     if logit_idx is None:
         h_last = h[:, -1]
     else:
@@ -326,8 +322,7 @@ def forward_prefill(params, cfg: ModelConfig, tokens, cache, lengths, *,
 
 def forward_decode(params, cfg: ModelConfig, tokens, cache, lengths, *,
                    write_positions=None, block_tables=None, active=None,
-                   moe_mode: str = "gmm", moe_capacity: float = 1.25,
-                   moe_shards: int = 1):
+                   moe_mode: str = "gmm"):
     """One decode step. tokens: [B] (last sampled token per sequence).
     ``write_positions`` [B] decouples where the new K/V row lands from
     the attention valid length (default: ``lengths``; negative = the
@@ -339,8 +334,7 @@ def forward_decode(params, cfg: ModelConfig, tokens, cache, lengths, *,
                     lengths=lengths, cache=cache, window=cfg.sliding_window,
                     write_positions=write_positions,
                     block_tables=block_tables, active=active,
-                    moe_mode=moe_mode, moe_capacity=moe_capacity,
-                    moe_shards=moe_shards)
+                    moe_mode=moe_mode)
     return _logits(params, cfg, h[:, 0]), cache, lengths + 1
 
 
@@ -361,8 +355,7 @@ def _scratch_write_lengths(cache, lengths, active):
 
 
 def forward_decode_fused(params, cfg: ModelConfig, tokens, cache, lengths,
-                         active, *, block_tables=None, moe_mode: str = "gmm",
-                         moe_capacity: float = 1.25, moe_shards: int = 1):
+                         active, *, block_tables=None, moe_mode: str = "gmm"):
     """One decode step with greedy sampling and the length increment
     folded in, so an engine keeps ``tokens``/``lengths``/``active`` on the
     device and never syncs per token.
@@ -381,8 +374,7 @@ def forward_decode_fused(params, cfg: ModelConfig, tokens, cache, lengths,
         write_positions = _scratch_write_lengths(cache, lengths, active)
     logits, cache, _ = forward_decode(
         params, cfg, tokens, cache, lengths, write_positions=write_positions,
-        block_tables=block_tables, active=active, moe_mode=moe_mode,
-        moe_capacity=moe_capacity, moe_shards=moe_shards)
+        block_tables=block_tables, active=active, moe_mode=moe_mode)
     next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     next_tokens = torch.where(active, next_tokens, tokens)
     return next_tokens, cache, lengths + active.to(lengths.dtype)
@@ -390,8 +382,7 @@ def forward_decode_fused(params, cfg: ModelConfig, tokens, cache, lengths,
 
 def forward_decode_megastep(params, cfg: ModelConfig, tokens, cache,
                             lengths, active, *, num_steps: int,
-                            block_tables=None, moe_mode: str = "gmm",
-                            moe_capacity: float = 1.25, moe_shards: int = 1):
+                            block_tables=None, moe_mode: str = "gmm"):
     """``num_steps`` fused decode iterations (the JAX ``lax.scan`` as a
     loop).  Returns (tokens_seq [K, B], next_tokens [B], cache,
     new_lengths); ``tokens_seq[i]`` is the token emitted by step i
@@ -400,16 +391,14 @@ def forward_decode_megastep(params, cfg: ModelConfig, tokens, cache,
     for _ in range(num_steps):
         tokens, cache, lengths = forward_decode_fused(
             params, cfg, tokens, cache, lengths, active,
-            block_tables=block_tables, moe_mode=moe_mode,
-            moe_capacity=moe_capacity, moe_shards=moe_shards)
+            block_tables=block_tables, moe_mode=moe_mode)
         toks.append(tokens)
     return torch.stack(toks), tokens, cache, lengths
 
 
 def forward_resume_batch(params, cfg: ModelConfig, tokens, cache, slot_idx,
                          lengths, logit_idx, *, block_tables=None,
-                         moe_mode: str = "gmm", moe_capacity: float = 1.25,
-                         moe_shards: int = 1):
+                         moe_mode: str = "gmm"):
     """Batched resume prefill: M jobs packed as one [M, bucket] chunk.
 
     tokens: [M, S]; slot_idx: [M] (distinct cache slots); lengths: [M]
@@ -424,6 +413,5 @@ def forward_resume_batch(params, cfg: ModelConfig, tokens, cache, slot_idx,
     bt = None if block_tables is None else block_tables[slot_idx.long()]
     logits, cache, _ = forward_prefill(
         params, cfg, tokens, cache, lengths, logit_idx=logit_idx,
-        slot_idx=slot_idx, block_tables=bt, moe_mode=moe_mode,
-        moe_capacity=moe_capacity, moe_shards=moe_shards)
+        slot_idx=slot_idx, block_tables=bt, moe_mode=moe_mode)
     return logits, cache

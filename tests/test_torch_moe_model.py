@@ -1,8 +1,8 @@
 """The port's MoE path against the JAX package, on the CPU.
 
 * ``ops.moe_gmm`` (its plain version here) against the JAX
-  ``ops.moe_gmm`` (Pallas, interpret mode) and both packages'
-  ``naive_gmm``, at the JAX kernel test's shapes (f32 3e-5, bf16 2e-2:
+  ``ops.moe_gmm`` (Pallas, interpret mode), and ``gmm_plain`` against the
+  JAX ``naive_gmm``, at the JAX kernel test's shapes (f32 3e-5, bf16 2e-2:
   the JAX kernel test's tolerances).
 * ``_router`` against JAX, with two experts tied on every token (both
   pick the lower index), and ``apply_moe`` in ``dense`` and ``gmm``
@@ -36,7 +36,8 @@ from repro.models import moe as jmoe  # noqa: E402
 
 import repro_torch.models as tm  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.moe_gmm import gmm_plain  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 
 GMM_TOL = {"float32": dict(rtol=3e-5, atol=3e-5),
@@ -89,7 +90,7 @@ def test_moe_gmm_plain_matches_jax_kernel(E, C, d, f, dtype):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                **GMM_TOL[dtype])
-    np.testing.assert_allclose(ref.naive_gmm(tx, tw).float().numpy(),
+    np.testing.assert_allclose(gmm_plain(tx, tw).float().numpy(),
                                np.asarray(jref.naive_gmm(jx, jw), np.float32),
                                **GMM_TOL[dtype])
 
