@@ -97,11 +97,43 @@ MoE (the grouped matmul of the experts, ``moe_gmm``):
              "gmm" on the same weights.  Every earlier slice asserts that
              ``moe_gmm`` never launched.
 
+int8 KV cache (the four ``_quant`` attention entries; the int8 cache has
+no engine path, as in the JAX package, so a model-level greedy loop,
+``greedy_drive``, serves it through the forwards: cold prompts in
+160-token ``forward_prefill`` chunks, one ``forward_resume_batch`` per
+later turn, ``forward_decode_megastep`` K=8 over the lanes):
+
+3-4.       — parity of ``flash_prefill_quant``, ``flash_decode_quant`` and
+             their paged forms against their plain versions at the
+             attention parity shapes (int8 values and scales from
+             ``quantize_kv``, a strided view of both; paged: page 64,
+             shuffled shared tables, also against the slab entries on the
+             gathered rows), f32 within 1e-4, bf16 within 2e-2; timed at
+             the attention timing shapes beside the plain version, one
+             SDPA call on K/V dequantised beforehand (the dequantisation
+             is not timed; no single PyTorch call reads int8, so the JSON
+             line's library_ms is null) and the bound from int8 values
+             and scales.
+20-21. identity_int8 and its paged twin — float32 Qwen2.5-3B widths cut
+             to 4 layers, 3 react sessions at token scale 0.25:
+             ``greedy_drive`` on the card and on the CPU (plain versions) in lock-step
+             through ``QuantLedger`` (the quantiser's rounding flips
+             counted, then shared): equal tokens, logits within 1e-3.
+22-23. slice_int8, slice_int8_paged and profile_int8 — full-width,
+             full-depth Qwen2.5-3B in bf16, 6 lanes at token scale 1.0,
+             max_seq 8192: every session gets all its tokens, only the
+             layout's two int8 entries launch; cache bytes against a bf16
+             cache's, ms per megastep and cold chunk, output tok/s, peak
+             memory, the share of greedy tokens equal to the same
+             loop's over a bf16 cache (printed), and the device time by
+             kernel of one megastep and one cold chunk.
+
 The last lines are the kernel list, the nvidia-smi line, the kernel JSON
 line and the result JSON line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -125,6 +157,8 @@ SLAB_KERNELS = ("flash_prefill", "flash_decode")
 PAGED_KERNELS = ("flash_prefill_paged", "flash_decode_paged")
 SSM_KERNELS = ("ssd_scan",)
 MOE_KERNELS = ("moe_gmm",)
+INT8_KERNELS = ("flash_prefill_quant", "flash_decode_quant")
+INT8_PAGED_KERNELS = ("flash_prefill_paged_quant", "flash_decode_paged_quant")
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 SOURCES = {
     "flash_prefill": ("src/repro_torch/kernels/csrc/prefill_attention.cu",
@@ -140,6 +174,18 @@ SOURCES = {
                  "src/repro/kernels/ssd_scan.py:67"),
     "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
                 "src/repro/kernels/moe_gmm.py:42"),
+    "flash_prefill_quant": (
+        "src/repro_torch/kernels/csrc/prefill_attention.cu",
+        "src/repro/kernels/prefill_attention.py:253"),
+    "flash_prefill_paged_quant": (
+        "src/repro_torch/kernels/csrc/prefill_attention.cu",
+        "src/repro/kernels/prefill_attention.py:279"),
+    # no TPU kernel: the XLA int8 branch of the JAX decode functions
+    "flash_decode_quant": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                           "src/repro/models/attention.py:472"),
+    "flash_decode_paged_quant": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/models/attention.py:338"),
 }
 
 
@@ -661,6 +707,231 @@ def phase_timing_moe():
     return res
 
 
+def _quant_rand(gen, shape, dtype):
+    """int8 values and scales (in ``dtype``) of an N(0, 1) cache."""
+    from repro_torch.models.attention import quantize_kv
+    return quantize_kv(_rand(gen, shape, dtype))
+
+
+def phase_parity_int8():
+    """The four int8 entries against their plain versions at the parity
+    shapes of the attention kernels; the paged ones also against the
+    slab ones on the gathered rows.  Returns the worst error per entry."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_paged_quant_plain, decode_attention_quant_plain,
+        paged_gather)
+    from repro_torch.kernels.prefill_attention import (
+        prefill_attention_paged_quant_plain, prefill_attention_quant_plain)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rng = np.random.default_rng(8)
+    worst = dict.fromkeys(INT8_KERNELS + INT8_PAGED_KERNELS, 0.0)
+    S, B = 8192, 6
+    pmax, P = S // PAGE, B * (S // PAGE)
+
+    def check(name, err, dtype, what):
+        torch.cuda.synchronize()
+        log(f"[parity_int8] {name} {what} max_abs_err={err:.3e}")
+        assert err <= TOL[dtype], (name, what, err)
+        worst[name] = max(worst[name], err)
+
+    lens = [1, 37, 1000, 3500, 8000, 5000]
+    for H, Hk, hd in PARITY_HEADS:
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = f"{H}/{Hk}/{hd} {str(dtype)[6:]}"
+            # slab: contiguous values and scales, then a strided view of
+            # both (every other KV head of a wider buffer)
+            wk, wks = _quant_rand(gen, (B, S, 2 * Hk, hd), dtype)
+            wv, wvs = _quant_rand(gen, (B, S, 2 * Hk, hd), dtype)
+            views = (("contig", [x[:, :, :Hk].contiguous()
+                                 for x in (wk, wks, wv, wvs)]),
+                     ("strided", [x[:, :, ::2] for x in (wk, wks, wv, wvs)]))
+            for what, kv in views:
+                q, L = _rand(gen, (B, 1, H, hd), dtype), _i32(lens)
+                check("flash_decode_quant",
+                      _max_err(ops.flash_decode_quant(q, *kv, L),
+                               decode_attention_quant_plain(q, *kv, L)),
+                      dtype, f"{dt} {what} lens={lens}")
+                for Sq in (16, 56, 160, 320):
+                    for off in (0, 3000):
+                        qo = _i32([off, off + 17, off // 2])
+                        ln, si = qo + Sq, _i32([5, 0, 3])
+                        qq = _rand(gen, (3, Sq, H, hd), dtype)
+                        got = ops.flash_prefill_quant(qq, *kv, qo, ln,
+                                                      slot_idx=si)
+                        check("flash_prefill_quant", _max_err(
+                            got, prefill_attention_quant_plain(
+                                qq, *kv, qo, ln, slot_idx=si)),
+                            dtype, f"{dt} {what} Sq={Sq} off={off}")
+            del wk, wks, wv, wvs, views
+            # paged: page 64, shuffled tables in which two rows share pages
+            plens = [3500, 1000, 1, 37, 8000, 5000]
+            ka, kas = _quant_rand(gen, (P + 1, PAGE, Hk, hd), dtype)
+            va, vas = _quant_rand(gen, (P + 1, PAGE, Hk, hd), dtype)
+            arenas = (ka, kas, va, vas)
+            bt = shared_tables(rng, plens, pmax, P)
+            lin = [paged_gather(a, bt) for a in arenas]
+            q, L = _rand(gen, (B, 1, H, hd), dtype), _i32(plens)
+            got = ops.flash_decode_paged_quant(q, *arenas, L, bt)
+            check("flash_decode_paged_quant", _max_err(
+                got, decode_attention_paged_quant_plain(q, *arenas, L, bt)),
+                dtype, f"{dt} page={PAGE} lens={plens} vs_slab_kernel="
+                f"{_max_err(got, ops.flash_decode_quant(q, *lin, L)):.3e}")
+            rows = _i32([5, 0, 3])
+            bt_m = bt[rows.long()].contiguous()
+            for Sq in (16, 56, 160, 320):
+                for off in (0, 3000):
+                    qo = _i32([off, off + 17, off // 2])
+                    ln = qo + Sq
+                    qq = _rand(gen, (3, Sq, H, hd), dtype)
+                    got = ops.flash_prefill_paged_quant(qq, *arenas, qo, ln,
+                                                        bt_m)
+                    slab = ops.flash_prefill_quant(qq, *lin, qo, ln,
+                                                   slot_idx=rows)
+                    check("flash_prefill_paged_quant", _max_err(
+                        got, prefill_attention_paged_quant_plain(
+                            qq, *arenas, qo, ln, bt_m)),
+                        dtype, f"{dt} page={PAGE} Sq={Sq} off={off} "
+                        f"vs_slab_kernel={_max_err(got, slab):.3e}")
+            del arenas, lin, ka, kas, va, vas
+    return worst
+
+
+def int8_bytes(keys: int, Hk: int, hd: int, es: int) -> int:
+    """Bytes of ``keys`` int8 K and V rows with their two scales (in a
+    type of ``es`` bytes) per KV head."""
+    return 2 * keys * Hk * (hd + es)
+
+
+def phase_timing_int8():
+    """The int8 entries at the kernel table's shapes (bf16 model,
+    Qwen2.5-3B heads, 6 slots of 8192 rows; paged: page 64, shuffled
+    tables): the kernel, its plain version and one SDPA call on K/V
+    dequantised to bf16 beforehand (the dequantisation is not timed).
+    No single PyTorch call reads int8, so ``library_ms`` is None and the
+    SDPA time is kept apart as ``sdpa_dequant_ms``.  The bound counts
+    int8 values and scales read once, q read and the output written
+    once, the index words, and the attention's flops plus one
+    dequantising multiply per K and V element."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_paged_quant_plain, decode_attention_quant_plain,
+        paged_gather)
+    from repro_torch.kernels.prefill_attention import (
+        prefill_attention_paged_quant_plain, prefill_attention_quant_plain)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rng = np.random.default_rng(9)
+    dtype, es = torch.bfloat16, 2
+    H, Hk, hd, S, B = 16, 2, 128, 8192, 6
+    G = H // Hk
+    pmax, P = S // PAGE, B * (S // PAGE)
+    deq = lambda x, s: (x.float() * s.float()).to(dtype)
+
+    def sdpa_ms(qx, kx, vx, m):
+        return _time_ms(lambda: F.scaled_dot_product_attention(
+            qx, kx, vx, attn_mask=m, enable_gqa=True))
+    res = {}
+    lens = [1, 37, 1000, 3500, 8000, 5000]
+    n_keys, Lmax = sum(lens), max(lens)
+    q, L = _rand(gen, (B, 1, H, hd), dtype), _i32(lens)
+    mask = (torch.arange(Lmax, device="cuda")[None, :]
+            < L[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2)
+    dec_flops = 4 * n_keys * H * hd + 2 * n_keys * Hk * hd
+    dec_bytes = int8_bytes(n_keys, Hk, hd, es) + 2 * B * H * hd * es + 4 * B
+    Sq, off = 160, 3000
+    Lk = off + Sq
+    pairs = sum(off + i + 1 for i in range(Sq))
+    pre_flops = 4 * pairs * H * hd + 2 * Lk * Hk * hd
+    pre_bytes = int8_bytes(Lk, Hk, hd, es) + 2 * Sq * H * hd * es + 12
+    qq = _rand(gen, (1, Sq, H, hd), dtype)
+    qo, ln = _i32([off]), _i32([off + Sq])
+    q_pos = off + torch.arange(Sq, device="cuda")
+    pmask = (torch.arange(Lk, device="cuda")[None, :]
+             <= q_pos[:, None])[None, None]
+    qqt = qq.transpose(1, 2)
+
+    # slab
+    kq, ks = _quant_rand(gen, (B, S, Hk, hd), dtype)
+    vq, vs = _quant_rand(gen, (B, S, Hk, hd), dtype)
+    kv = (kq, ks, vq, vs)
+    kt = deq(kq[:, :Lmax], ks[:, :Lmax]).transpose(1, 2)
+    vt = deq(vq[:, :Lmax], vs[:, :Lmax]).transpose(1, 2)
+    bound, by = _bound_ms(dec_flops, dec_bytes, dtype)
+    res["flash_decode_quant"] = dict(
+        ms=_time_ms(lambda: ops.flash_decode_quant(q, *kv, L)),
+        plain_ms=_time_ms(lambda: decode_attention_quant_plain(q, *kv, L)),
+        library_ms=None, sdpa_dequant_ms=sdpa_ms(qt, kt, vt, mask),
+        bound_ms=bound, bound_by=by,
+        shape=f"B={B} H/Hk/hd={H}/{Hk}/{hd} lens={lens} int8 K/V, bf16")
+    si = _i32([2])
+    kt = deq(kq[2:3, :Lk], ks[2:3, :Lk]).transpose(1, 2)
+    vt = deq(vq[2:3, :Lk], vs[2:3, :Lk]).transpose(1, 2)
+    bound, by = _bound_ms(pre_flops, pre_bytes, dtype)
+    res["flash_prefill_quant"] = dict(
+        ms=_time_ms(lambda: ops.flash_prefill_quant(qq, *kv, qo, ln,
+                                                    slot_idx=si)),
+        plain_ms=_time_ms(lambda: prefill_attention_quant_plain(
+            qq, *kv, qo, ln, slot_idx=si)),
+        library_ms=None, sdpa_dequant_ms=sdpa_ms(qqt, kt, vt, pmask),
+        bound_ms=bound, bound_by=by,
+        shape=f"M=1 Sq={Sq} offset={off} H/Hk/hd={H}/{Hk}/{hd} G={G} "
+              f"int8 K/V, bf16")
+    # the slice's resume batch: 4 rows of 64 tokens deep in context
+    offs = [3100, 3600, 4200, 2900]
+    qr = _rand(gen, (4, 64, H, hd), dtype)
+    qro, lro = _i32(offs), _i32([o + 64 for o in offs])
+    ms = _time_ms(lambda: ops.flash_prefill_quant(qr, *kv, qro, lro,
+                                                  slot_idx=_i32([0, 1, 2, 3])))
+    rb, rby = _bound_ms(
+        4 * sum(o + i + 1 for o in offs for i in range(64)) * H * hd
+        + 2 * sum(o + 64 for o in offs) * Hk * hd,
+        int8_bytes(sum(o + 64 for o in offs), Hk, hd, es)
+        + 2 * 4 * 64 * H * hd * es, dtype)
+    log(f"[timing_int8] flash_prefill_quant resume M=4 Sq=64 offsets={offs}: "
+        f"kernel_ms={ms:.4f} bound_ms={rb:.5f} ({rby})")
+    del kv, kq, ks, vq, vs, kt, vt
+
+    # paged: every row maps its pages from a shuffled arena
+    arenas = [*_quant_rand(gen, (P + 1, PAGE, Hk, hd), dtype),
+              *_quant_rand(gen, (P + 1, PAGE, Hk, hd), dtype)]
+    bt = shared_tables(rng, [S] * B, pmax, P)
+    lin = [paged_gather(a, bt) for a in arenas]
+    kt = deq(lin[0][:, :Lmax], lin[1][:, :Lmax]).transpose(1, 2)
+    vt = deq(lin[2][:, :Lmax], lin[3][:, :Lmax]).transpose(1, 2)
+    pages = sum(-(-n // PAGE) for n in lens)
+    bound, by = _bound_ms(dec_flops, dec_bytes + 4 * pages, dtype)
+    res["flash_decode_paged_quant"] = dict(
+        ms=_time_ms(lambda: ops.flash_decode_paged_quant(q, *arenas, L, bt)),
+        plain_ms=_time_ms(lambda: decode_attention_paged_quant_plain(
+            q, *arenas, L, bt)),
+        library_ms=None, sdpa_dequant_ms=sdpa_ms(qt, kt, vt, mask),
+        bound_ms=bound, bound_by=by,
+        shape=f"B={B} H/Hk/hd={H}/{Hk}/{hd} lens={lens} page={PAGE} "
+              f"int8 K/V, bf16")
+    bt_1 = bt[2:3].contiguous()
+    kt = deq(lin[0][2:3, :Lk], lin[1][2:3, :Lk]).transpose(1, 2)
+    vt = deq(lin[2][2:3, :Lk], lin[3][2:3, :Lk]).transpose(1, 2)
+    bound, by = _bound_ms(pre_flops, pre_bytes + 4 * -(-Lk // PAGE), dtype)
+    res["flash_prefill_paged_quant"] = dict(
+        ms=_time_ms(lambda: ops.flash_prefill_paged_quant(qq, *arenas, qo,
+                                                          ln, bt_1)),
+        plain_ms=_time_ms(lambda: prefill_attention_paged_quant_plain(
+            qq, *arenas, qo, ln, bt_1)),
+        library_ms=None, sdpa_dequant_ms=sdpa_ms(qqt, kt, vt, pmask),
+        bound_ms=bound, bound_by=by,
+        shape=f"M=1 Sq={Sq} offset={off} H/Hk/hd={H}/{Hk}/{hd} G={G} "
+              f"page={PAGE} int8 K/V, bf16")
+    for name, r in res.items():
+        log(f"[timing_int8] {name} {r['shape']}: kernel_ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms=none (no single "
+            f"PyTorch call reads int8) sdpa_on_dequantised_kv_ms="
+            f"{r['sdpa_dequant_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+    return res
+
+
 def free_device_memory() -> None:
     """Release what a finished phase dropped.  An engine holds reference
     cycles (its telemetry gauges call back into it), so after ``del`` its
@@ -937,7 +1208,6 @@ def phase_profile(eng, paged: bool, tag: str = "profile",
     torch.profiler over the device alone (time by kernel, busy share).
     Paged: every slot maps its own pages, in order.  ``moe_mode``: the
     MoE FFN path of the forwards (the engine's is "dense")."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import (forward_decode_megastep,
                                     forward_prefill, forward_resume_batch)
     cfg, params, cache = eng.mcfg, eng.params, eng.pool.cache
@@ -971,6 +1241,14 @@ def phase_profile(eng, paged: bool, tag: str = "profile",
                                  i32([63] * 4), block_tables=bt,
                                  moe_mode=moe_mode)),
     }
+    profile_work(tag, work)
+
+
+def profile_work(tag: str, work) -> None:
+    """For each named callable: one warm call, one call timed with the
+    host clock around a synchronize, and one traced with torch.profiler
+    over the device alone (device time by kernel, busy share)."""
+    from torch.profiler import ProfilerActivity, profile
     for what, fn in work.items():
         fn()
         torch.cuda.synchronize()
@@ -991,17 +1269,345 @@ def phase_profile(eng, paged: bool, tag: str = "profile",
                 f"x{e.count:<5d} {e.key[:90]}")
 
 
+def _on(tree, device):
+    """A copy of a weight tree on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def greedy_drive(cfg, params, sessions, *, device, dtype, kv_quant: bool,
+                 max_seq: int, chunk: int = 160, steps: int = 8,
+                 seed: int = 0):
+    """Serve ``sessions`` greedily through the model-level forwards, one
+    cache lane each (the int8 cache has no engine path, as in the JAX
+    package).  Turn 0: each lane's cold prompt in ``chunk``-token
+    ``forward_prefill`` calls; later turns: one ``forward_resume_batch``
+    over the lanes that have the turn (rows padded to the longest, logits
+    at each row's last real token).  Then ``forward_decode_megastep`` of
+    ``steps`` (fewer only to end the shortest burst) over the lanes still
+    decoding, the others inactive.  As in the port's oracle, a turn's
+    last token is not fed back.  Paged: each lane maps its own pages from
+    a shuffled arena (``seed``).  Returns (streams [lane][tokens], the
+    logits of every prefill and resume call (CPU, f32), stats)."""
+    from repro_torch.models import (forward_decode_megastep, forward_prefill,
+                                    forward_resume_batch, init_cache)
+    B = len(sessions)
+    cache = init_cache(cfg, B, max_seq, dtype, device, kv_quant=kv_quant)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    bt = None
+    if cfg.kv_layout == "paged":
+        pmax = max_seq // cfg.kv_page_size
+        perm = np.random.default_rng(seed).permutation(B * pmax)
+        bt = torch.tensor(perm.reshape(B, pmax).astype(np.int32),
+                          device=device)
+    lengths = [0] * B
+    streams = [[] for _ in range(B)]
+    logits_log, chunk_s, mega_s = [], [], []
+    t0 = time.perf_counter()
+    for ti in range(max(len(s.turns) for s in sessions)):
+        lanes = [b for b, s in enumerate(sessions) if ti < len(s.turns)]
+        prompts = [np.asarray(sessions[b].turns[ti].prefill_tokens, np.int32)
+                   for b in lanes]
+        if ti == 0:
+            last = []
+            for b, toks in zip(lanes, prompts):
+                kw = ({"block_tables": bt[b:b + 1]} if bt is not None
+                      else {"slot_idx": i32([b])})
+                for c0 in range(0, len(toks), chunk):
+                    piece = torch.tensor(toks[None, c0:c0 + chunk],
+                                         device=device)
+                    sync()
+                    tc = time.perf_counter()
+                    logits, cache, _ = forward_prefill(
+                        params, cfg, piece, cache, i32([lengths[b]]), **kw)
+                    sync()
+                    chunk_s.append(time.perf_counter() - tc)
+                    lengths[b] += piece.shape[1]
+                last.append(logits[0])
+            logits = torch.stack(last)
+        else:
+            toks = np.zeros((len(lanes), max(map(len, prompts))), np.int32)
+            for r, x in enumerate(prompts):
+                toks[r, :len(x)] = x
+            logits, cache = forward_resume_batch(
+                params, cfg, torch.tensor(toks, device=device), cache,
+                i32(lanes), i32([lengths[b] for b in lanes]),
+                i32([len(x) - 1 for x in prompts]), block_tables=bt)
+            for b, x in zip(lanes, prompts):
+                lengths[b] += len(x)
+        logits_log.append(logits.float().cpu())
+        cur, remaining = [0] * B, [0] * B
+        for b, tok in zip(lanes, logits.float().argmax(-1).tolist()):
+            streams[b].append(tok)
+            cur[b] = tok
+            remaining[b] = sessions[b].turns[ti].decode_len - 1
+        cur_t, len_t = i32(cur), i32(lengths)
+        while any(remaining):
+            active = [r > 0 for r in remaining]
+            K = min(steps, min(r for r in remaining if r > 0))
+            tm = time.perf_counter()
+            seq, cur_t, cache, len_t = forward_decode_megastep(
+                params, cfg, cur_t, cache, len_t,
+                torch.tensor(active, device=device), num_steps=K,
+                block_tables=bt)
+            seq = seq.tolist()                      # waits for the device
+            if K == steps:
+                mega_s.append(time.perf_counter() - tm)
+            for b in range(B):
+                if active[b]:
+                    streams[b].extend(seq[i][b] for i in range(K))
+                    remaining[b] -= K
+                    lengths[b] += K
+    sync()
+    stats = dict(wall_s=time.perf_counter() - t0, chunk_s=chunk_s,
+                 megastep_s=mega_s, cache=cache, block_tables=bt)
+    for s, got in zip(sessions, streams):
+        want = sum(t.decode_len for t in s.turns)
+        assert len(got) == want, (s.session_id, len(got), want)
+    return streams, logits_log, stats
+
+
+def _assert_int8_launches(launches, paged: bool, tag: str) -> None:
+    own = INT8_PAGED_KERNELS if paged else INT8_KERNELS
+    for name in SOURCES:
+        if name in own:
+            assert launches[name] > 0, f"{tag}: {name} was never launched"
+        else:
+            assert launches[name] == 0, f"{tag}: {name} was launched"
+
+
+class QuantLedger:
+    """Lock-step check of the int8 quantiser across two devices.
+
+    ``quantize_kv`` rounds ``x / s`` to the nearest integer, so a
+    one-ulp difference upstream (cuBLAS against the CPU's matmuls) can
+    round a value near a half-integer the other way.  One such flip moves
+    a key or value by a whole quantisation step, and at the first
+    positions of a prompt (few keys) the change reaches the next layer's
+    K/V and flips more: two devices that quantise independently do not
+    keep logits within 1e-3.  So the card run records every call of the
+    model's quantiser (``record``), and the CPU run (``adopt``) checks
+    its own result against the card's record of the same call: scales
+    within 3e-5 relative, pre-rounding values ``x / s`` within 1e-2 of a
+    step, so the int8 values differ by at most one where ``x / s``
+    straddles a half-integer (counted as flips), and no flip where the
+    two pre-rounding values are equal (that would be another rounding
+    rule).  It then continues from the card's values, so the two runs
+    read equal caches and every other difference shows in the logits."""
+
+    def __init__(self):
+        self.calls, self.values, self.flips = [], 0, 0
+        self.max_dr = self.max_ds = 0.0
+
+    @contextlib.contextmanager
+    def patched(self, make):
+        from repro_torch.models import blocks
+        real = blocks.quantize_kv
+        blocks.quantize_kv = make(real)
+        try:
+            yield
+        finally:
+            blocks.quantize_kv = real
+
+    def record(self, real):
+        def quantize(x):
+            q, sc = real(x)
+            self.calls.append((q.cpu(), sc.cpu(),
+                               (x.float() / sc.float()).cpu()))
+            return q, sc
+        return quantize
+
+    def adopt(self, real):
+        calls = iter(self.calls)
+
+        def quantize(x):
+            q, sc = real(x)
+            q_card, s_card, r_card = next(calls)
+            assert q.shape == q_card.shape, (q.shape, q_card.shape)
+            r = x.float() / sc.float()
+            dr = (r - r_card).abs().max().item()
+            ds = ((sc.float() - s_card).abs() / s_card.abs()).max().item()
+            assert dr <= 1e-2 and ds <= 3e-5, (dr, ds)
+            flip = q != q_card
+            assert not (flip & (r == r_card)).any(), "a flip at equal x / s"
+            self.values += q.numel()
+            self.flips += int(flip.sum())
+            self.max_dr, self.max_ds = max(self.max_dr, dr), max(self.max_ds,
+                                                                  ds)
+            return q_card.to(x.device), s_card.to(x.device)
+        return quantize
+
+
+def phase_identity_int8(paged: bool):
+    """float32 Qwen2.5-3B widths cut to 4 layers over an int8 cache: the
+    greedy loop on the card (the int8 kernels) and on the CPU (their
+    plain versions), from the same weights, in lock-step through
+    ``QuantLedger``: equal tokens, and the logits of every prefill and
+    resume call within 1e-3.  On the slab layout the CPU also runs once
+    quantising on its own, and the line shows where that run leaves the
+    card's (printed, not asserted)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving.workload import make_workload
+    torch.backends.cuda.matmul.allow_tf32 = False       # full f32 products
+    tag = "identity_int8" + ("_paged" if paged else "")
+    full = get_config("qwen2.5-3b")
+    cfg = dataclasses.replace(full, num_layers=4,
+                              kv_layout="paged" if paged else "slab",
+                              kv_page_size=PAGE)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         torch.float32)
+    cpu_params = _on(params, "cpu")
+    sessions = make_workload(3, workload="react", vocab_size=cfg.vocab_size,
+                             token_scale=0.25, seed=3)
+    kw = dict(dtype=torch.float32, kv_quant=True, max_seq=2048)
+    ledger = QuantLedger()
+    ops.reset_launches()
+    with ledger.patched(ledger.record):
+        card, card_logits, st = greedy_drive(cfg, params, sessions,
+                                             device="cuda", **kw)
+    launches = dict(ops.LAUNCHES)
+    _assert_int8_launches(launches, paged, tag)
+    own = INT8_PAGED_KERNELS if paged else INT8_KERNELS
+    t0 = time.perf_counter()
+    with ledger.patched(ledger.adopt):
+        cpu, cpu_logits, _ = greedy_drive(cfg, cpu_params, sessions,
+                                          device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    err = max(_max_err(a, b) for a, b in zip(card_logits, cpu_logits))
+    log(f"[{tag}] {cfg.name} full width, {cfg.num_layers} of "
+        f"{full.num_layers} layers, float32, int8 {cfg.kv_layout} cache: "
+        f"{len(sessions)} sessions, {sum(map(len, card))} tokens; card "
+        f"{st['wall_s']:.1f} s, cpu {cpu_s:.1f} s | quantiser: "
+        f"{len(ledger.calls)} calls, {ledger.values} values, "
+        f"{ledger.flips} rounding flips, max |x/s card - cpu|="
+        f"{ledger.max_dr:.2e} (limit 1e-2), max scale rel diff="
+        f"{ledger.max_ds:.2e} (limit 3e-5) | logits of {len(card_logits)} "
+        f"prefill/resume calls max_abs_err={err:.3e} (limit 1e-3) | "
+        f"launches {({k: launches[k] for k in own})}")
+    for b, (a, c) in enumerate(zip(card, cpu)):
+        if a != c:
+            i = next(i for i, (x, y) in enumerate(zip(a, c)) if x != y)
+            raise AssertionError(f"{tag}: lane {b} leaves the CPU stream at "
+                                 f"token {i} of {len(a)}")
+    assert err <= 1e-3, (tag, err)
+    if not paged:
+        own, own_logits, _ = greedy_drive(cfg, cpu_params, sessions,
+                                          device="cpu", **kw)
+        first = [next((i for i, (x, y) in enumerate(zip(a, c)) if x != y),
+                      None) for a, c in zip(card, own)]
+        log(f"[{tag}] the CPU quantising on its own: logits of the first "
+            f"call max_abs_err={_max_err(card_logits[0], own_logits[0]):.3e}; "
+            f"first token that differs, per lane: {first} of "
+            f"{[len(a) for a in card]}")
+    del params, cpu_params
+    free_device_memory()
+
+
+def phase_slices_int8():
+    """Full-width, full-depth Qwen2.5-3B in bf16 over an int8 cache,
+    driven by ``greedy_drive`` (6 lanes, react, token scale 1.0, max_seq
+    8192) on the slab layout, then the paged one (page 64); each run's
+    launches are counted from zero and only its layout's int8 entries may
+    launch.  Then the same loop over a bf16 slab cache, for the share
+    of greedy tokens that agree (printed, not asserted: int8 changes the
+    logits in the reference as well), and the profile of one megastep and
+    one cold chunk on each int8 cache.  Returns each layout's launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import (forward_decode_megastep, forward_prefill,
+                                    init_params)
+    from repro_torch.serving.workload import make_workload
+    base = get_config("qwen2.5-3b")
+    B, max_seq = 6, 8192
+    params = init_params(base, torch.Generator(device="cuda").manual_seed(0),
+                         torch.bfloat16)
+    sessions = make_workload(B, workload="react", vocab_size=base.vocab_size,
+                             token_scale=SLICE_TOKEN_SCALE, seed=3)
+    prompt = sum(len(t.prefill_tokens) for s in sessions for t in s.turns)
+    kw = dict(device="cuda", dtype=torch.bfloat16, max_seq=max_seq)
+    out, runs = {}, {}
+    for paged in (False, True):
+        tag = "slice_int8" + ("_paged" if paged else "")
+        cfg = dataclasses.replace(base, kv_layout="paged" if paged else
+                                  "slab", kv_page_size=PAGE)
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        streams, _, st = greedy_drive(cfg, params, sessions, kv_quant=True,
+                                      **kw)
+        launches = dict(ops.LAUNCHES)
+        _assert_int8_launches(launches, paged, tag)
+        toks = sum(map(len, streams))
+        leaves = [(n, t) for layer in st["cache"].values()
+                  for n, t in layer.items()]
+        q8 = sum(t.numel() * t.element_size() for _, t in leaves)
+        bf16 = sum(t.numel() * 2 for n, t in leaves if n in ("k", "v"))
+        log(f"[{tag}] {base.name} full width and depth, bfloat16, int8 "
+            f"{cfg.kv_layout} cache{' (page %d)' % PAGE if paged else ''}, "
+            f"{B} lanes, react, token_scale={SLICE_TOKEN_SCALE}, "
+            f"max_seq={max_seq}: sessions={B} output_tokens={toks} "
+            f"prompt_tokens={prompt} wall_s={st['wall_s']:.3f} "
+            f"output_tok_s={toks / st['wall_s']:.2f}")
+        log(f"[{tag}] cache_bytes={q8} (int8 values + scales) vs "
+            f"bf16_cache_bytes={bf16} ratio={q8 / bf16:.4f} | "
+            f"megastep K=8 ms p50={1e3 * np.median(st['megastep_s']):.2f} "
+            f"(n={len(st['megastep_s'])}) | cold chunk 160 ms "
+            f"p50={1e3 * np.median(st['chunk_s']):.2f} "
+            f"(n={len(st['chunk_s'])}) | max_memory_allocated_GB="
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} | "
+            f"launches={launches}")
+        out[paged] = launches
+        runs[paged] = (cfg, streams, st)
+    ref, _, st = greedy_drive(dataclasses.replace(base, kv_layout="slab"),
+                              params, sessions, kv_quant=False, **kw)
+    del st
+    for paged, (cfg, streams, st) in runs.items():
+        agree = sum(x == y for a, b in zip(streams, ref) for x, y in zip(a, b))
+        log(f"[slice_int8{'_paged' if paged else ''}] greedy tokens equal to "
+            f"the bf16 slab cache's at the same position: {agree} of "
+            f"{sum(map(len, ref))} ({agree / sum(map(len, ref)):.1%})")
+        cache, bt = st["cache"], st["block_tables"]
+        i32 = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
+        one = ({"block_tables": bt[:1]} if paged else {"slot_idx": i32([0])})
+        profile_work("profile_int8" + ("_paged" if paged else ""), {
+            "decode megastep K=8, 6 lanes at 3500 rows": lambda: (
+                forward_decode_megastep(
+                    params, cfg, i32([0] * B), cache, i32([3500] * B),
+                    torch.ones(B, dtype=torch.bool, device="cuda"),
+                    num_steps=8, block_tables=bt)),
+            "cold chunk 160 tokens at offset 3000": lambda: forward_prefill(
+                params, cfg, torch.zeros((1, 160), dtype=torch.int32,
+                                         device="cuda"), cache, i32([3000]),
+                **one)})
+    del params, runs, ref
+    free_device_memory()
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
+
+    def stamp(what):
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
     name, smi = phase_device()
     phase_build()
     worst = phase_parity()
     worst.update(phase_parity_paged())
     worst.update(phase_parity_ssm())
     worst.update(phase_parity_moe())
+    worst.update(phase_parity_int8())
+    stamp("parity")
     timing = phase_timing()
     timing.update(phase_timing_paged())
     timing.update(phase_timing_ssm())
     timing.update(phase_timing_moe())
+    timing.update(phase_timing_int8())
+    free_device_memory()
+    stamp("timing")
     phase_identity(paged=False)
     launches, eng = phase_slice(paged=False)
     phase_profile(eng, paged=False)
@@ -1012,6 +1618,7 @@ def main() -> int:
     phase_profile(eng, paged=True)
     del eng
     free_device_memory()
+    stamp("Qwen2.5-3B slices")
     phase_identity_ssm(hybrid=False)
     phase_identity_ssm(hybrid=True)
     launches_ssm, eng = phase_slice(paged=False, arch="mamba2-780m")
@@ -1022,17 +1629,28 @@ def main() -> int:
     phase_profile(eng, paged=True, tag="profile_ssm")
     del eng
     free_device_memory()
+    stamp("mamba2-780m slices")
     phase_identity(paged=False, arch="olmoe-1b-7b")
     phase_identity(paged=True, arch="olmoe-1b-7b")
     launches_moe, eng = phase_slice(paged=False, arch="olmoe-1b-7b")
     phase_profile(eng, paged=False, tag="profile_moe", moe_mode="dense")
     phase_profile(eng, paged=False, tag="profile_moe_gmm", moe_mode="gmm")
+    del eng
+    free_device_memory()
+    stamp("OLMoE-1B-7B slice")
+    phase_identity_int8(paged=False)
+    phase_identity_int8(paged=True)
+    int8 = phase_slices_int8()
+    stamp("int8 slices")
     # each kernel's launches are those of the slice that runs its path
     # (the scan: the slab Mamba-2 slice; its paged twin's count is in the
-    # slice_ssm_paged line; the grouped matmul: slice_moe)
+    # slice_ssm_paged line; the grouped matmul: slice_moe; the int8
+    # entries: slice_int8 and slice_int8_paged)
     launches.update({k: launches_paged[k] for k in PAGED_KERNELS})
     launches.update({k: launches_ssm[k] for k in SSM_KERNELS})
     launches.update({k: launches_moe[k] for k in MOE_KERNELS})
+    launches.update({k: int8[False][k] for k in INT8_KERNELS})
+    launches.update({k: int8[True][k] for k in INT8_PAGED_KERNELS})
     log("kernels: " + "; ".join(
         f"{k} parity=ok max_abs_err={worst[k]:.3e} launches={launches[k]}"
         for k in SOURCES))

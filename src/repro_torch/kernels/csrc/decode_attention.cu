@@ -1,11 +1,17 @@
 // Flash-decode attention for Hopper (sm_90a): one query token per
 // sequence against the slab KV cache, or through a block table against
-// the paged KV arena.
+// the paged KV arena, each in the model's type or in int8 with
+// per-(position, head) scales.
 //
 // Replaces the TPU kernels src/repro/kernels/decode_attention.py
 // `flash_decode_bhgd` (`_decode_kernel`, entry `flash_decode`) and
 // `flash_decode_paged_bhgd` (`_decode_kernel_paged`, entry
-// `flash_decode_paged`).  Same function: for batch row b
+// `flash_decode_paged`).  The int8 entries `flash_decode_quant` and
+// `flash_decode_paged_quant` replace no TPU kernel: they are the
+// hand-written counterpart of the XLA int8 branches of
+// src/repro/models/attention.py `decode_attention` and
+// `decode_attention_paged` (`blocked_attention_quant` over the cache,
+// keys and values f32(int8) * f32(scale)).  Same function: for batch row b
 // and KV head h, the G = H / Hk query heads of that KV head attend keys
 // [0, lengths[b]) with an online softmax in f32 (NEG_INF = -1e30 masking,
 // max(l, 1e-30) denominator floor); the output has the input's type.
@@ -23,6 +29,13 @@
 //     shared memory, so each row is read from HBM once per step;
 //   * tiles move as 16-byte vectors, and the next tile is in flight in
 //     registers while the current one is computed.
+// int8 cache: the same body with int8 values (16 to a 16-byte vector, so
+// 2 vectors per thread and tile at hd 128 and 1 at hd 64) and scales
+// [.., Hk, 1] in q's type, read as scalars through their own strides
+// beside the values of their row and applied as the row is stored to
+// shared memory.  Bytes per step halve against bf16 (plus 2 scale bytes
+// per row and head), which an occupancy-bound kernel (below) does not
+// turn into time.
 // Paged layout: the kernel body is the slab one; only the row
 // addressing differs (the `Rows` functor).  Logical row pos of batch row
 // b lives at physical page bt[b, pos / page], row pos % page, of the
@@ -37,6 +50,8 @@
 // tiles is the follow-up.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -74,6 +89,23 @@ template <> struct Vec16<float> {
     f[2] = __uint_as_float(r.z); f[3] = __uint_as_float(r.w);
   }
 };
+// 16 int8 values, with no conversion instruction (those run at a
+// quarter of the FMA rate): with its sign bit flipped, byte b holds
+// b + 128, which one byte permute makes the low byte of the float
+// 2^23 + b + 128; subtracting 2^23 + 128 leaves b exactly.
+template <> struct Vec16<int8_t> {
+  static constexpr int N = 16;
+  __device__ static void unpack(const uint4& r, float* f) {
+    const unsigned w[4] = {r.x ^ 0x80808080u, r.y ^ 0x80808080u,
+                           r.z ^ 0x80808080u, r.w ^ 0x80808080u};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        f[4 * i + b] =
+            __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7540u | b)) - 8388736.f;
+  }
+};
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -107,25 +139,32 @@ struct PagedRows {
 // grid (Hk, B); block kThreads.  q/out: [B, 1, H, hd] rows addressed by
 // (b * q_sb + head * q_sh); K at addr.page(b, pos) * k_sp +
 // addr.within(pos) * k_ss + h * k_sh (likewise V), a unit stride on hd,
-// 16-byte aligned rows; keys [0, min(lengths[b], cap)).
-template <typename T, int HD, typename Rows>
+// 16-byte aligned rows; keys [0, min(lengths[b], cap)).  C: the cache
+// values' type, T or int8_t; with int8 the scales ks/vs (type T) sit at
+// the same (page, row, head) through their own strides.
+template <typename T, typename C, int HD, typename Rows>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ lengths,
+flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
+                    const C* __restrict__ v, const T* __restrict__ ks,
+                    const T* __restrict__ vs, const int* __restrict__ lengths,
                     T* __restrict__ out, int G, int cap,
                     long long q_sb, long long q_sh, Rows addr,
                     long long k_sp, long long k_ss, long long k_sh,
                     long long v_sp, long long v_ss, long long v_sh,
-                    long long o_sb, long long o_sh, float scale) {
+                    long long o_sb, long long o_sh,
+                    long long ks_sp, long long ks_ss, long long ks_sh,
+                    long long vs_sp, long long vs_ss, long long vs_sh, float scale) {
   static_assert(kBK == 32 && kThreads == 128 && kMaxG == 8, "thread layout");
   static_assert(kThreads % HD == 0 || HD % kThreads == 0, "thread layout");
+  constexpr bool kQuant = std::is_same<C, int8_t>::value;
   constexpr int kGStep = kThreads / HD;          // query heads per pass
   constexpr int kGPer = kMaxG / kGStep;          // (g, d) outputs per thread
-  constexpr int kV = Vec16<T>::N;                // elements per 16-byte load
+  constexpr int kV = Vec16<C>::N;                // elements per 16-byte load
   constexpr int kVecs = kBK * HD / kV / kThreads;  // loads per thread per tile
+  static_assert(kVecs >= 1 && HD % kV == 0, "a vector stays in one key row");
   __shared__ float q_s[kMaxG][HD];
   __shared__ float k_s[kBK][HD + 1];             // +1: conflict-free row reads
-  __shared__ float v_s[kBK][HD];
+  __shared__ __align__(16) float v_s[kBK][HD];   // 16-byte rows: float4 stores
   __shared__ float p_s[kMaxG][kBK];
   __shared__ float m_s[kMaxG], l_s[kMaxG], c_s[kMaxG];
 
@@ -142,13 +181,17 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float acc[kGPer];
 #pragma unroll
   for (int i = 0; i < kGPer; ++i) acc[i] = 0.f;
-  const T* kb = k + h * k_sh;
-  const T* vb = v + h * v_sh;
+  const C* kb = k + h * k_sh;
+  const C* vb = v + h * v_sh;
+  const T* ksb = kQuant ? ks + h * ks_sh : nullptr;
+  const T* vsb = kQuant ? vs + h * vs_sh : nullptr;
 
   // The next tile is loaded into registers (raw 16-byte vectors) while
   // the current tile is computed, so the loop does not wait on memory.
   // Vector u of thread t holds tile elements (t + u * kThreads) * kV ...
+  // (kV values of one key row); int8: ksc/vsc hold that row's scales.
   uint4 kr[kVecs], vr[kVecs];
+  float ksc[kVecs], vsc[kVecs];
   auto load_tile = [&](int start) {
 #pragma unroll
     for (int u = 0; u < kVecs; ++u) {
@@ -158,9 +201,17 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const long long pg = addr.page(b, pos), w = addr.within(pos);
         kr[u] = *reinterpret_cast<const uint4*>(kb + pg * k_sp + w * k_ss + d);
         vr[u] = *reinterpret_cast<const uint4*>(vb + pg * v_sp + w * v_ss + d);
+        if constexpr (kQuant) {
+          ksc[u] = to_f(ksb[pg * ks_sp + w * ks_ss]);
+          vsc[u] = to_f(vsb[pg * vs_sp + w * vs_ss]);
+        }
       } else {
         kr[u] = zero;
         vr[u] = zero;
+        if constexpr (kQuant) {
+          ksc[u] = 0.f;
+          vsc[u] = 0.f;
+        }
       }
     }
   };
@@ -173,12 +224,20 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < kVecs; ++u) {
       const int e = (t + u * kThreads) * kV, j = e / HD, d = e % HD;
       float f[kV];
-      Vec16<T>::unpack(kr[u], f);
+      // int8: dequantised on the way in, f32(int8) * f32(scale)
+      const float kf = kQuant ? ksc[u] : 1.f, vf = kQuant ? vsc[u] : 1.f;
+      Vec16<C>::unpack(kr[u], f);
 #pragma unroll
-      for (int c = 0; c < kV; ++c) k_s[j][d + c] = f[c];
-      Vec16<T>::unpack(vr[u], f);
+      for (int c = 0; c < kV; ++c) k_s[j][d + c] = kQuant ? f[c] * kf : f[c];
+      Vec16<C>::unpack(vr[u], f);
+      // a V row is 16-byte aligned, so the vector goes in as float4s: a
+      // quarter of the store instructions, and a warp's scalar stores,
+      // kV floats apart, would meet on few banks
 #pragma unroll
-      for (int c = 0; c < kV; ++c) v_s[j][d + c] = f[c];
+      for (int c = 0; c < kV; c += 4)
+        *reinterpret_cast<float4*>(&v_s[j][d + c]) =
+            kQuant ? make_float4(f[c] * vf, f[c + 1] * vf, f[c + 2] * vf, f[c + 3] * vf)
+                   : make_float4(f[c], f[c + 1], f[c + 2], f[c + 3]);
     }
     __syncthreads();
     if (start + kBK < L) load_tile(start + kBK);
@@ -239,40 +298,45 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// st: q (sb, sh), k (sp, ss, sh), v (sp, ss, sh), out (sb, sh), in
-// elements (sp: the slab row stride, or the page stride).
-template <typename T, typename Rows>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths,
-                   void* out, int B, int Hk, int G, int cap, int hd,
-                   const long long* st, Rows addr, float scale, cudaStream_t stream) {
+// st: q (sb, sh), k (sp, ss, sh), v (sp, ss, sh), out (sb, sh), ks (sp,
+// ss, sh), vs (sp, ss, sh), in elements (sp: the slab row stride, or the
+// page stride).  C: the values' type (int8_t: with scales ks/vs).
+template <typename T, typename C, typename Rows>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
+                   const void* vs, const int* lengths, void* out, int B, int Hk, int G,
+                   int cap, int hd, const long long* st, Rows addr, float scale,
+                   cudaStream_t stream) {
   dim3 grid(Hk, B);
+#define REPRO_DECODE_LAUNCH(HD)                                                         \
+  flash_decode_kernel<T, C, HD, Rows><<<grid, kThreads, 0, stream>>>(                   \
+      (const T*)q, (const C*)k, (const C*)v, (const T*)ks, (const T*)vs, lengths,       \
+      (T*)out, G, cap, st[0], st[1], addr, st[2], st[3], st[4], st[5], st[6], st[7],    \
+      st[8], st[9], st[10], st[11], st[12], st[13], st[14], st[15], scale)
   if (hd == 128)
-    flash_decode_kernel<T, 128, Rows><<<grid, kThreads, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, lengths, (T*)out, G, cap, st[0], st[1],
-        addr, st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], scale);
+    REPRO_DECODE_LAUNCH(128);
   else if (hd == 64)
-    flash_decode_kernel<T, 64, Rows><<<grid, kThreads, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, lengths, (T*)out, G, cap, st[0], st[1],
-        addr, st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], scale);
+    REPRO_DECODE_LAUNCH(64);
   else
     return cudaErrorInvalidValue;
+#undef REPRO_DECODE_LAUNCH
   return cudaGetLastError();
 }
 
-template <typename Rows>
-int dispatch(const void* q, const void* k, const void* v, const void* lengths,
-             void* out, int dtype, int B, int Hk, int G, int cap, int hd,
-             const long long* st, Rows addr, float scale, void* stream) {
+template <bool kQuant, typename Rows>
+int dispatch(const void* q, const void* k, const void* v, const void* ks,
+             const void* vs, const void* lengths, void* out, int dtype, int B, int Hk,
+             int G, int cap, int hd, const long long* st, Rows addr, float scale,
+             void* stream) {
   if (G < 1 || G > kMaxG) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int* lens = (const int*)lengths;
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, lens, out, B, Hk, G, cap, hd, st, addr, scale,
-                              s);
+    return (int)launch<float, std::conditional_t<kQuant, int8_t, float>>(
+        q, k, v, ks, vs, lens, out, B, Hk, G, cap, hd, st, addr, scale, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, lens, out, B, Hk, G, cap, hd, st, addr,
-                                      scale, s);
+    return (int)launch<__nv_bfloat16, std::conditional_t<kQuant, int8_t, __nv_bfloat16>>(
+        q, k, v, ks, vs, lens, out, B, Hk, G, cap, hd, st, addr, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -287,10 +351,10 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             long long v_sb, long long v_ss, long long v_sh,
                             long long o_sb, long long o_sh, float scale,
                             void* stream) {
-  const long long st[10] = {q_sb, q_sh, k_sb, k_ss, k_sh,
-                            v_sb, v_ss, v_sh, o_sb, o_sh};
-  return dispatch(q, k, v, lengths, out, dtype, B, Hk, G, S, hd, st, SlabRows{},
-                  scale, stream);
+  const long long st[16] = {q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                            o_sb, o_sh, 0,    0,    0,    0,    0,    0};
+  return dispatch<false>(q, k, v, nullptr, nullptr, lengths, out, dtype, B, Hk, G, S,
+                         hd, st, SlabRows{}, scale, stream);
 }
 
 // Paged arena: k/v [P_phys, page, Hk, hd] with strides (sp, ss, sh);
@@ -304,9 +368,48 @@ extern "C" int flash_decode_paged(const void* q, const void* k, const void* v,
                                   long long v_sh, long long o_sb, long long o_sh,
                                   float scale, void* stream) {
   if (page_shift < 0 || page_shift > 16 || pmax < 1) return (int)cudaErrorInvalidValue;
-  const long long st[10] = {q_sb, q_sh, k_sp, k_ss, k_sh,
-                            v_sp, v_ss, v_sh, o_sb, o_sh};
-  return dispatch(q, k, v, lengths, out, dtype, B, Hk, G, pmax << page_shift, hd, st,
-                  PagedRows{(const int*)block_tables, pmax, page_shift}, scale,
-                  stream);
+  const long long st[16] = {q_sb, q_sh, k_sp, k_ss, k_sh, v_sp, v_ss, v_sh,
+                            o_sb, o_sh, 0,    0,    0,    0,    0,    0};
+  return dispatch<false>(q, k, v, nullptr, nullptr, lengths, out, dtype, B, Hk, G,
+                         pmax << page_shift, hd, st,
+                         PagedRows{(const int*)block_tables, pmax, page_shift}, scale,
+                         stream);
+}
+
+// int8 slab cache: values k/v int8 [B, S, Hk, hd] with strides (sb, ss,
+// sh), scales ks/vs [B, S, Hk, 1] in q's type with strides (sb, ss, sh).
+// Other arguments as flash_decode.
+extern "C" int flash_decode_quant(const void* q, const void* k, const void* ks,
+                                  const void* v, const void* vs, const void* lengths,
+                                  void* out, int dtype, int B, int Hk, int G, int S,
+                                  int hd, long long q_sb, long long q_sh, long long k_sb,
+                                  long long k_ss, long long k_sh, long long ks_sb,
+                                  long long ks_ss, long long ks_sh, long long v_sb,
+                                  long long v_ss, long long v_sh, long long vs_sb,
+                                  long long vs_ss, long long vs_sh, long long o_sb,
+                                  long long o_sh, float scale, void* stream) {
+  const long long st[16] = {q_sb, q_sh, k_sb,  k_ss,  k_sh,  v_sb,  v_ss,  v_sh,
+                            o_sb, o_sh, ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh};
+  return dispatch<true>(q, k, v, ks, vs, lengths, out, dtype, B, Hk, G, S, hd, st,
+                        SlabRows{}, scale, stream);
+}
+
+// int8 paged arenas: values k/v int8 [P_phys, page, Hk, hd] and scales
+// ks/vs [P_phys, page, Hk, 1] in q's type, each with strides (sp, ss, sh),
+// read through one block table.  Other arguments as flash_decode_paged.
+extern "C" int flash_decode_paged_quant(
+    const void* q, const void* k, const void* ks, const void* v, const void* vs,
+    const void* lengths, const void* block_tables, void* out, int dtype, int B, int Hk,
+    int G, int pmax, int page_shift, int hd, long long q_sb, long long q_sh,
+    long long k_sp, long long k_ss, long long k_sh, long long ks_sp, long long ks_ss,
+    long long ks_sh, long long v_sp, long long v_ss, long long v_sh, long long vs_sp,
+    long long vs_ss, long long vs_sh, long long o_sb, long long o_sh, float scale,
+    void* stream) {
+  if (page_shift < 0 || page_shift > 16 || pmax < 1) return (int)cudaErrorInvalidValue;
+  const long long st[16] = {q_sb, q_sh, k_sp,  k_ss,  k_sh,  v_sp,  v_ss,  v_sh,
+                            o_sb, o_sh, ks_sp, ks_ss, ks_sh, vs_sp, vs_ss, vs_sh};
+  return dispatch<true>(q, k, v, ks, vs, lengths, out, dtype, B, Hk, G,
+                        pmax << page_shift, hd, st,
+                        PagedRows{(const int*)block_tables, pmax, page_shift}, scale,
+                        stream);
 }

@@ -1,15 +1,19 @@
 """Flash-decode attention: one query token per sequence against the slab
-KV cache, or through block tables against the paged KV arena.
+KV cache, or through block tables against the paged KV arena, each in
+the model's type or in int8 with scales.
 
 The CUDA kernels (``csrc/decode_attention.cu``) replace the TPU kernels
 ``repro.kernels.decode_attention.flash_decode_bhgd`` (slab) and
-``flash_decode_paged_bhgd`` (paged); the source's header says what
-bounds them on the H100 and what the design does about that.  All
-versions here take the model layout: q [B, 1, H, hd], ``lengths`` [B]
-int32 (valid keys, the current token included), and either slab caches
-[B, S_max, Hk, hd] or one layer's page arenas [P_phys, page, Hk, hd]
-with ``block_tables`` [B, P_max] int32 physical page ids, all read in
-place.
+``flash_decode_paged_bhgd`` (paged); their int8 entries replace the XLA
+int8 branches of ``repro.models.attention.decode_attention`` and
+``decode_attention_paged``, which have no TPU kernel.  The source's
+header says what bounds them on the H100 and what the design does about
+that.  All versions here take the model layout: q [B, 1, H, hd],
+``lengths`` [B] int32 (valid keys, the current token included), and
+either slab caches [B, S_max, Hk, hd] or one layer's page arenas
+[P_phys, page, Hk, hd] with ``block_tables`` [B, P_max] int32 physical
+page ids, all read in place.  An int8 cache has scales [..., Hk, 1] in
+q's type beside its values; a key or value is ``f32(int8) * f32(scale)``.
 """
 from __future__ import annotations
 
@@ -22,13 +26,6 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 MAX_GROUP = 8          # query heads per KV head the kernel takes
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-             + [ctypes.c_longlong] * 10 + [ctypes.c_float, ctypes.c_void_p])
-_PAGED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] * 10
-                   + [ctypes.c_float, ctypes.c_void_p])
-
-
 def paged_gather(arena, block_tables):
     """Linearise a page arena through block tables: arena
     [P_phys, page, Hk, x], block_tables [B, P_max] -> [B, P_max * page,
@@ -39,15 +36,13 @@ def paged_gather(arena, block_tables):
     return g.reshape((B, pm * ps) + tuple(g.shape[3:]))
 
 
-def decode_attention_plain(q, k_cache, v_cache, lengths):
-    """The plain PyTorch version: a masked softmax in f32 over the valid
-    slice, the G query heads of a KV head grouped together."""
+def _masked_decode(q, k, v, lengths):
+    """The masked softmax in f32 of the plain versions: q [B, 1, H, hd]
+    against the first L cache rows k/v [B, L, Hk, hd] (f32), the G query
+    heads of a KV head grouped together."""
     B, _, H, hd = q.shape
-    S, Hk = k_cache.shape[1], k_cache.shape[2]
+    L, Hk = k.shape[1], k.shape[2]
     G = H // Hk
-    L = min(int(lengths.max()), S) if B else 0
-    k = k_cache[:, :L].float()                                    # [B, L, Hk, hd]
-    v = v_cache[:, :L].float()
     qg = q[:, 0].float().reshape(B, Hk, G, hd) * (1.0 / hd ** 0.5)
     s = torch.einsum("bhgd,bkhd->bhgk", qg, k)
     valid = (torch.arange(L, device=q.device)[None, :]
@@ -58,6 +53,26 @@ def decode_attention_plain(q, k_cache, v_cache, lengths):
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def _valid_len(q, k_cache, lengths) -> int:
+    return min(int(lengths.max()), k_cache.shape[1]) if q.shape[0] else 0
+
+
+def decode_attention_plain(q, k_cache, v_cache, lengths):
+    """The plain PyTorch version: a masked softmax in f32 over the valid
+    slice, the G query heads of a KV head grouped together."""
+    L = _valid_len(q, k_cache, lengths)
+    return _masked_decode(q, k_cache[:, :L].float(), v_cache[:, :L].float(),
+                          lengths)
+
+
+def decode_attention_quant_plain(q, k_q, k_s, v_q, v_s, lengths):
+    """The int8 plain version: the valid slice dequantised as
+    ``f32(int8) * f32(scale)``, then the masked softmax."""
+    L = _valid_len(q, k_q, lengths)
+    return _masked_decode(q, k_q[:, :L].float() * k_s[:, :L].float(),
+                          v_q[:, :L].float() * v_s[:, :L].float(), lengths)
+
+
 def decode_attention_paged_plain(q, k_arena, v_arena, lengths, block_tables):
     """The paged plain version: the session's pages gathered into a
     linear view, then the slab plain version."""
@@ -66,44 +81,77 @@ def decode_attention_paged_plain(q, k_arena, v_arena, lengths, block_tables):
                                   lengths)
 
 
+def decode_attention_paged_quant_plain(q, k_q, k_s, v_q, v_s, lengths,
+                                       block_tables):
+    """The int8 paged plain version: values and scales gathered through
+    the tables, then the int8 slab plain version."""
+    bt = block_tables
+    return decode_attention_quant_plain(
+        q, paged_gather(k_q, bt), paged_gather(k_s, bt),
+        paged_gather(v_q, bt), paged_gather(v_s, bt), lengths)
+
+
+def _launch(entry: str, q, leaves, index, ints):
+    """Call ``entry`` of ``csrc/decode_attention.cu`` on the current
+    stream: the pointers of q, the cache leaves, the index tensors and
+    the output, q's type, ``ints``, the (row, head) strides of q, the
+    (row, position, head) strides of each leaf, the (row, head) strides
+    of the output, the softmax scale and the stream.  The caller
+    (``ops``) has checked devices, types and layouts."""
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    ptrs = [q, *leaves, *index, out]
+    strides = [q.stride(0), q.stride(2),
+               *[st for t in leaves for st in t.stride()[:3]],
+               out.stride(0), out.stride(2)]
+    fn = getattr(_build.load("decode_attention"), entry)
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
+                   + [ctypes.c_int] * (1 + len(ints))
+                   + [ctypes.c_longlong] * len(strides)
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    rc = fn(*[t.data_ptr() for t in ptrs],
+            0 if q.dtype == torch.float32 else 1, *ints, *strides,
+            1.0 / q.shape[3] ** 0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    return out
+
+
 def decode_attention_cuda(q, k_cache, v_cache, lengths):
-    """Launch the CUDA kernel on the current stream.  The caller
-    (``ops.flash_decode``) has checked devices, types and layouts."""
-    lib = _build.load("decode_attention")
-    fn = lib.flash_decode
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    """Launch the slab kernel (``ops.flash_decode``)."""
     B, _, H, hd = q.shape
     S, Hk = k_cache.shape[1], k_cache.shape[2]
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(),
-            0 if q.dtype == torch.float32 else 1, B, Hk, H // Hk, S, hd,
-            q.stride(0), q.stride(2), *k_cache.stride()[:3],
-            *v_cache.stride()[:3], out.stride(0), out.stride(2),
-            1.0 / hd ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {rc}")
-    return out
+    return _launch("flash_decode", q, (k_cache, v_cache), (lengths,),
+                   (B, Hk, H // Hk, S, hd))
 
 
 def decode_attention_paged_cuda(q, k_arena, v_arena, lengths, block_tables):
-    """Launch the paged CUDA kernel on the current stream.  The caller
-    (``ops.flash_decode_paged``) has checked devices, types, layouts and
-    that the page size is a power of two."""
-    lib = _build.load("decode_attention")
-    fn = lib.flash_decode_paged
-    fn.argtypes, fn.restype = _PAGED_ARGTYPES, ctypes.c_int
+    """Launch the paged kernel (``ops.flash_decode_paged``; the page size
+    is a power of two)."""
     B, _, H, hd = q.shape
     page, Hk = k_arena.shape[1], k_arena.shape[2]
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    rc = fn(q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
-            lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
-            0 if q.dtype == torch.float32 else 1, B, Hk, H // Hk,
-            block_tables.shape[1], page.bit_length() - 1, hd,
-            q.stride(0), q.stride(2), *k_arena.stride()[:3],
-            *v_arena.stride()[:3], out.stride(0), out.stride(2),
-            1.0 / hd ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_decode_paged kernel launch failed: CUDA error {rc}")
-    return out
+    return _launch("flash_decode_paged", q, (k_arena, v_arena),
+                   (lengths, block_tables),
+                   (B, Hk, H // Hk, block_tables.shape[1],
+                    page.bit_length() - 1, hd))
+
+
+def decode_attention_quant_cuda(q, k_q, k_s, v_q, v_s, lengths):
+    """Launch the int8 slab kernel (``ops.flash_decode_quant``)."""
+    B, _, H, hd = q.shape
+    S, Hk = k_q.shape[1], k_q.shape[2]
+    return _launch("flash_decode_quant", q, (k_q, k_s, v_q, v_s),
+                   (lengths,), (B, Hk, H // Hk, S, hd))
+
+
+def decode_attention_paged_quant_cuda(q, k_q, k_s, v_q, v_s, lengths,
+                                      block_tables):
+    """Launch the int8 paged kernel (``ops.flash_decode_paged_quant``;
+    the page size is a power of two)."""
+    B, _, H, hd = q.shape
+    page, Hk = k_q.shape[1], k_q.shape[2]
+    return _launch("flash_decode_paged_quant", q, (k_q, k_s, v_q, v_s),
+                   (lengths, block_tables),
+                   (B, Hk, H // Hk, block_tables.shape[1],
+                    page.bit_length() - 1, hd))

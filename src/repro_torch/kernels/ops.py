@@ -1,8 +1,9 @@
 """Public kernel wrappers: check the arguments, then dispatch on the
 tensors' device.  Slab caches go to ``flash_prefill``/``flash_decode``,
 the paged arena with its block tables to ``flash_prefill_paged``/
-``flash_decode_paged``; the Mamba-2 chunked scan is ``ssd_scan``; the
-MoE experts' grouped matmul is ``moe_gmm``.
+``flash_decode_paged``, and an int8 cache (values with per-(position,
+head) scales) to the ``_quant`` entry of each; the Mamba-2 chunked scan
+is ``ssd_scan``; the MoE experts' grouped matmul is ``moe_gmm``.
 
 A CUDA tensor launches the hand-written kernel (``csrc/*.cu``, built at
 first use by ``_build``) or raises: there is no fallback to the plain
@@ -22,10 +23,14 @@ import torch
 
 from repro_torch.kernels.decode_attention import (
     MAX_GROUP, decode_attention_cuda, decode_attention_paged_cuda,
-    decode_attention_paged_plain, decode_attention_plain)
+    decode_attention_paged_plain, decode_attention_paged_quant_cuda,
+    decode_attention_paged_quant_plain, decode_attention_plain,
+    decode_attention_quant_cuda, decode_attention_quant_plain)
 from repro_torch.kernels.prefill_attention import (
     prefill_attention_cuda, prefill_attention_paged_cuda,
-    prefill_attention_paged_plain, prefill_attention_plain)
+    prefill_attention_paged_plain, prefill_attention_paged_quant_cuda,
+    prefill_attention_paged_quant_plain, prefill_attention_plain,
+    prefill_attention_quant_cuda, prefill_attention_quant_plain)
 from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
 from repro_torch.kernels.ssd_scan import (MAX_CHUNK, SHAPES, ssd_scan_cuda,
                                           ssd_scan_plain)
@@ -33,7 +38,10 @@ from repro_torch.kernels.ssd_scan import (MAX_CHUNK, SHAPES, ssd_scan_cuda,
 LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "flash_decode": 0,
                             "flash_prefill_paged": 0,
                             "flash_decode_paged": 0, "ssd_scan": 0,
-                            "moe_gmm": 0}
+                            "moe_gmm": 0, "flash_prefill_quant": 0,
+                            "flash_prefill_paged_quant": 0,
+                            "flash_decode_quant": 0,
+                            "flash_decode_paged_quant": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
@@ -48,7 +56,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _check_common(q, k_cache, v_cache, index_tensors, name: str) -> None:
+def _check_common(q, k_cache, v_cache, index_tensors, name: str,
+                  k_scale=None, v_scale=None) -> None:
+    """Shapes, types, devices and (on CUDA) the kernels' layouts.  With
+    scales (the int8 entries) the values must be int8 and the scales
+    [..., Hk, 1] on the values' first three dims, in q's type; without,
+    q, k and v share one type.  Scales are read as scalars through their
+    strides, so they need no vector alignment."""
     if q.dim() != 4 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"{name}: q must be [*, S, H, hd] and the caches "
                          f"[B, S_max, Hk, hd] of one shape; got "
@@ -59,10 +73,22 @@ def _check_common(q, k_cache, v_cache, index_tensors, name: str) -> None:
     if k_cache.shape[3] != hd or H % Hk:
         raise ValueError(f"{name}: head dims disagree (H={H}, Hk={Hk}, "
                          f"hd={hd} vs {k_cache.shape[3]})")
-    if not (q.dtype == k_cache.dtype == v_cache.dtype) or q.dtype not in _DTYPES:
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: q must be one of {_DTYPES}; got {q.dtype}")
+    scales = () if k_scale is None else (k_scale, v_scale)
+    if scales:
+        if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
+            raise TypeError(f"{name}: the int8 entries take int8 values; got "
+                            f"{k_cache.dtype}, {v_cache.dtype}")
+        want = tuple(k_cache.shape[:3]) + (1,)
+        for s in scales:
+            if tuple(s.shape) != want or s.dtype != q.dtype:
+                raise TypeError(f"{name}: scales must be {want} in q's type "
+                                f"{q.dtype}; got {tuple(s.shape)} {s.dtype}")
+    elif not (q.dtype == k_cache.dtype == v_cache.dtype):
         raise TypeError(f"{name}: q/k/v must share one of {_DTYPES}; got "
                         f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
-    devs = {t.device for t in (q, k_cache, v_cache, *index_tensors)}
+    devs = {t.device for t in (q, k_cache, v_cache, *scales, *index_tensors)}
     if len(devs) != 1:
         raise ValueError(f"{name}: tensors on several devices: {devs}")
     for t in index_tensors:
@@ -111,6 +137,17 @@ def _check_tables(block_tables, rows: int, lengths, k_arena,
                          f"the tables' P_max * page = {cap}")
 
 
+def _prefill_rows(q, q_offset, lengths, slot_idx, cache_rows: int,
+                  name: str) -> None:
+    M = q.shape[0]
+    if q_offset.shape[0] != M or lengths.shape[0] != M or (
+            slot_idx is not None and slot_idx.shape[0] != M):
+        raise ValueError(f"{name}: q_offset/lengths/slot_idx need M rows")
+    if slot_idx is None and cache_rows != M:
+        raise ValueError(f"{name}: without slot_idx the cache batch must "
+                         f"equal M")
+
+
 def flash_prefill(q, k_cache, v_cache, q_offset, lengths, *,
                   window: int = 0, slot_idx=None):
     """Cache-aware chunk prefill. q: [M, Sq, H, hd]; caches
@@ -118,12 +155,8 @@ def flash_prefill(q, k_cache, v_cache, q_offset, lengths, *,
     cache rows (None: row m) -> [M, Sq, H, hd] in q's type."""
     idx = [q_offset, lengths] + ([slot_idx] if slot_idx is not None else [])
     _check_common(q, k_cache, v_cache, idx, "flash_prefill")
-    M = q.shape[0]
-    if any(t.shape[0] != M for t in idx):
-        raise ValueError("flash_prefill: q_offset/lengths/slot_idx need M rows")
-    if slot_idx is None and k_cache.shape[0] != M:
-        raise ValueError("flash_prefill: without slot_idx the cache batch "
-                         "must equal M")
+    _prefill_rows(q, q_offset, lengths, slot_idx, k_cache.shape[0],
+                  "flash_prefill")
     if not q.is_cuda:
         return prefill_attention_plain(q, k_cache, v_cache, q_offset, lengths,
                                        window=window, slot_idx=slot_idx)
@@ -204,6 +237,110 @@ def flash_decode_paged(q, k_arena, v_arena, lengths, block_tables):
     out = decode_attention_paged_cuda(q, k_arena, v_arena, lengths,
                                       block_tables)
     LAUNCHES["flash_decode_paged"] += 1
+    return out
+
+
+def flash_prefill_quant(q, k_q, k_s, v_q, v_s, q_offset, lengths, *,
+                        window: int = 0, slot_idx=None):
+    """Cache-aware chunk prefill over an int8 slab cache. q: [M, Sq, H,
+    hd]; k_q/v_q int8 [B, S_max, Hk, hd]; k_s/v_s [B, S_max, Hk, 1] in q's
+    type; q_offset/lengths: [M] int32; slot_idx: [M] int32 cache rows
+    (None: row m) -> [M, Sq, H, hd] in q's type."""
+    idx = [q_offset, lengths] + ([slot_idx] if slot_idx is not None else [])
+    _check_common(q, k_q, v_q, idx, "flash_prefill_quant", k_s, v_s)
+    _prefill_rows(q, q_offset, lengths, slot_idx, k_q.shape[0],
+                  "flash_prefill_quant")
+    if not q.is_cuda:
+        return prefill_attention_quant_plain(q, k_q, k_s, v_q, v_s, q_offset,
+                                             lengths, window=window,
+                                             slot_idx=slot_idx)
+    if q.shape[2] // k_q.shape[2] > _MAX_PREFILL_GROUP:
+        raise ValueError("flash_prefill_quant: more than 64 query heads per "
+                         "KV head")
+    if q.stride(3) != 1:
+        q = q.contiguous()
+    out = prefill_attention_quant_cuda(q, k_q, k_s, v_q, v_s, q_offset,
+                                       lengths, window=window,
+                                       slot_idx=slot_idx)
+    LAUNCHES["flash_prefill_quant"] += 1
+    return out
+
+
+def flash_prefill_paged_quant(q, k_q, k_s, v_q, v_s, q_offset, lengths,
+                              block_tables, *, window: int = 0):
+    """Cache-aware chunk prefill through block tables over int8 arenas.
+    q: [M, Sq, H, hd]; k_q/v_q int8 [P_phys, page, Hk, hd]; k_s/v_s
+    [P_phys, page, Hk, 1] in q's type; q_offset/lengths: [M] int32;
+    block_tables [M, P_max] int32 (row m's table) -> [M, Sq, H, hd]."""
+    _check_common(q, k_q, v_q, [q_offset, lengths],
+                  "flash_prefill_paged_quant", k_s, v_s)
+    M = q.shape[0]
+    if q_offset.shape[0] != M or lengths.shape[0] != M:
+        raise ValueError("flash_prefill_paged_quant: q_offset/lengths need "
+                         "M rows")
+    _check_tables(block_tables, M, lengths, k_q, "flash_prefill_paged_quant")
+    if not q.is_cuda:
+        return prefill_attention_paged_quant_plain(
+            q, k_q, k_s, v_q, v_s, q_offset, lengths, block_tables,
+            window=window)
+    if q.shape[2] // k_q.shape[2] > _MAX_PREFILL_GROUP:
+        raise ValueError("flash_prefill_paged_quant: more than 64 query "
+                         "heads per KV head")
+    if q.stride(3) != 1:
+        q = q.contiguous()
+    out = prefill_attention_paged_quant_cuda(q, k_q, k_s, v_q, v_s, q_offset,
+                                             lengths, block_tables,
+                                             window=window)
+    LAUNCHES["flash_prefill_paged_quant"] += 1
+    return out
+
+
+def flash_decode_quant(q, k_q, k_s, v_q, v_s, lengths):
+    """One-token decode over an int8 slab cache. q: [B, 1, H, hd];
+    k_q/v_q int8 [B, S_max, Hk, hd]; k_s/v_s [B, S_max, Hk, 1] in q's
+    type; lengths: [B] int32 valid keys incl. the current one
+    -> [B, 1, H, hd]."""
+    _check_common(q, k_q, v_q, [lengths], "flash_decode_quant", k_s, v_s)
+    B = q.shape[0]
+    if q.shape[1] != 1 or k_q.shape[0] != B or lengths.shape[0] != B:
+        raise ValueError("flash_decode_quant: q must be [B, 1, H, hd] over a "
+                         "cache and lengths of B rows")
+    if not q.is_cuda:
+        return decode_attention_quant_plain(q, k_q, k_s, v_q, v_s, lengths)
+    if q.shape[2] // k_q.shape[2] > MAX_GROUP:
+        raise ValueError(f"flash_decode_quant: more than {MAX_GROUP} query "
+                         f"heads per KV head")
+    if q.stride(3) != 1:
+        q = q.contiguous()
+    out = decode_attention_quant_cuda(q, k_q, k_s, v_q, v_s, lengths)
+    LAUNCHES["flash_decode_quant"] += 1
+    return out
+
+
+def flash_decode_paged_quant(q, k_q, k_s, v_q, v_s, lengths, block_tables):
+    """One-token decode through block tables over int8 arenas. q: [B, 1,
+    H, hd]; k_q/v_q int8 [P_phys, page, Hk, hd]; k_s/v_s
+    [P_phys, page, Hk, 1] in q's type; lengths: [B] int32 valid keys
+    incl. the current one; block_tables [B, P_max] int32
+    -> [B, 1, H, hd]."""
+    _check_common(q, k_q, v_q, [lengths], "flash_decode_paged_quant", k_s,
+                  v_s)
+    B = q.shape[0]
+    if q.shape[1] != 1 or lengths.shape[0] != B:
+        raise ValueError("flash_decode_paged_quant: q must be [B, 1, H, hd] "
+                         "with lengths of B rows")
+    _check_tables(block_tables, B, lengths, k_q, "flash_decode_paged_quant")
+    if not q.is_cuda:
+        return decode_attention_paged_quant_plain(q, k_q, k_s, v_q, v_s,
+                                                  lengths, block_tables)
+    if q.shape[2] // k_q.shape[2] > MAX_GROUP:
+        raise ValueError(f"flash_decode_paged_quant: more than {MAX_GROUP} "
+                         f"query heads per KV head")
+    if q.stride(3) != 1:
+        q = q.contiguous()
+    out = decode_attention_paged_quant_cuda(q, k_q, k_s, v_q, v_s, lengths,
+                                            block_tables)
+    LAUNCHES["flash_decode_paged_quant"] += 1
     return out
 
 

@@ -2,13 +2,17 @@
 
 ``blocked_attention`` is the forward-only plain path (the JAX package's
 XLA reference): an online softmax over KV blocks that never builds the
-full [Sq, Sk] score matrix.  The serving dispatchers go through the
-kernel wrappers in ``repro_torch.kernels.ops``: the CUDA kernels on
-CUDA tensors, their plain versions on CPU tensors.  ``prefill_attention``
-and ``decode_attention`` read the slab cache; ``prefill_attention_paged``
+full [Sq, Sk] score matrix; ``blocked_attention_quant`` is the same over
+an int8 cache.  The serving dispatchers go through the kernel wrappers
+in ``repro_torch.kernels.ops``: the CUDA kernels on CUDA tensors, their
+plain versions on CPU tensors.  ``prefill_attention`` and
+``decode_attention`` read the slab cache; ``prefill_attention_paged``
 and ``decode_attention_paged`` read the page arena through block tables.
-Paths the port does not have yet (sliding-window decode on CUDA, int8
-KV) raise instead of falling back.
+An int8 cache (``quantize_kv``: int8 values with per-(position, head)
+scales) goes to ``prefill_attention_quant``,
+``prefill_attention_paged_quant``, and the decode dispatchers given
+``k_scale``/``v_scale``.  Sliding-window decode has no CUDA kernel: it
+runs on CPU tensors and raises on CUDA tensors instead of falling back.
 """
 from __future__ import annotations
 
@@ -20,11 +24,10 @@ from repro_torch.kernels.decode_attention import paged_gather
 NEG_INF = -1e30
 
 
-def blocked_attention(q, k, v, *, q_offset=None, lengths=None,
-                      causal: bool = True, window: int = 0,
-                      block_size: int = 512):
-    """q: [B, Sq, H, hd]; k/v: [B, Sk, Hk, hd]; q_offset: [B] absolute
-    position of q[:, 0]; lengths: [B] valid keys -> [B, Sq, H, hd]."""
+def _blocked(q, k, v, k_scale, v_scale, q_offset, lengths, causal: bool,
+             window: int, block_size: int):
+    """The online softmax of ``blocked_attention[_quant]``; with scales,
+    each KV block is dequantised as ``f32(int8) * f32(scale)``."""
     B, Sq, H, hd = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     G = H // Hk
@@ -43,6 +46,9 @@ def blocked_attention(q, k, v, *, q_offset=None, lengths=None,
     for start in range(0, Sk, block):
         k_blk = k[:, start:start + block].float()
         v_blk = v[:, start:start + block].float()
+        if k_scale is not None:
+            k_blk = k_blk * k_scale[:, start:start + block].float()
+            v_blk = v_blk * v_scale[:, start:start + block].float()
         key_pos = torch.arange(start, start + k_blk.shape[1], device=dev)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_blk)
         valid = key_pos[None, None, :] < lens[:, None, None]
@@ -62,6 +68,36 @@ def blocked_attention(q, k, v, *, q_offset=None, lengths=None,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def blocked_attention(q, k, v, *, q_offset=None, lengths=None,
+                      causal: bool = True, window: int = 0,
+                      block_size: int = 512):
+    """q: [B, Sq, H, hd]; k/v: [B, Sk, Hk, hd]; q_offset: [B] absolute
+    position of q[:, 0]; lengths: [B] valid keys -> [B, Sq, H, hd]."""
+    return _blocked(q, k, v, None, None, q_offset, lengths, causal, window,
+                    block_size)
+
+
+def blocked_attention_quant(q, k_q, k_s, v_q, v_s, *, q_offset=None,
+                            lengths=None, causal: bool = True,
+                            window: int = 0, block_size: int = 512):
+    """``blocked_attention`` over an int8 cache: k_q/v_q int8
+    [B, Sk, Hk, hd]; k_s/v_s per-(position, head) scales [B, Sk, Hk, 1],
+    dequantised per block as the JAX package's scan does.  The plain
+    path of CPU tensors (windowed int8 decode) and of the tests."""
+    return _blocked(q, k_q, v_q, k_s, v_s, q_offset, lengths, causal,
+                    window, block_size)
+
+
+def quantize_kv(x):
+    """x: [..., hd] -> (int8 values, per-(...) scale [..., 1] in x's
+    type), as the JAX package: the scale ``max|x| / 127`` in f32 floored
+    at 1e-8, values ``round(x / s)`` (half to even) clipped to +-127."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / s), -127, 127)
+    return q.to(torch.int8), s.to(x.dtype)
+
+
 def prefill_attention(q, k_cache, v_cache, *, q_offset, lengths,
                       window: int = 0, slot_idx=None):
     """Serving prefill/resume attention: a [M, Sq] query chunk against
@@ -73,15 +109,27 @@ def prefill_attention(q, k_cache, v_cache, *, q_offset, lengths,
                              else slot_idx.int())
 
 
+def prefill_attention_quant(q, k_q, k_s, v_q, v_s, *, q_offset, lengths,
+                            window: int = 0, slot_idx=None):
+    """``prefill_attention`` over an int8 slab cache: values k_q/v_q int8
+    [B, S_max, Hk, hd] with scales k_s/v_s [B, S_max, Hk, 1]."""
+    return ops.flash_prefill_quant(q, k_q, k_s, v_q, v_s, q_offset.int(),
+                                   lengths.int(), window=window,
+                                   slot_idx=None if slot_idx is None
+                                   else slot_idx.int())
+
+
 def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
-                     block_size: int = 2048):
+                     block_size: int = 2048, k_scale=None, v_scale=None):
     """Single-token decode against the slab cache. q: [B, 1, H, hd];
     caches [B, S, Hk, hd]; lengths [B] valid keys incl. the current one.
+    ``k_scale``/``v_scale`` [B, S, Hk, 1]: the cache is int8.
 
     With ``window > 0`` only the last ``window`` cache entries are read
     (per-row slice, then the blocked plain path) — on CPU tensors only:
     the windowed decode kernel is not ported."""
     S = k_cache.shape[1]
+    quant = k_scale is not None
     if window > 0 and window < S:
         if q.is_cuda:
             raise NotImplementedError(
@@ -91,10 +139,17 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
         idx = starts[:, None] + torch.arange(window, device=q.device)[None, :]
         rows = torch.arange(B, device=q.device)[:, None]
         rel_len = lengths.long() - starts
+        kw = dict(q_offset=rel_len - 1, lengths=rel_len, causal=True,
+                  window=0, block_size=min(block_size, window))
+        if quant:
+            return blocked_attention_quant(
+                q, k_cache[rows, idx], k_scale[rows, idx],
+                v_cache[rows, idx], v_scale[rows, idx], **kw)
         return blocked_attention(q, k_cache[rows, idx], v_cache[rows, idx],
-                                 q_offset=rel_len - 1, lengths=rel_len,
-                                 causal=True, window=0,
-                                 block_size=min(block_size, window))
+                                 **kw)
+    if quant:
+        return ops.flash_decode_quant(q, k_cache, k_scale, v_cache, v_scale,
+                                      lengths.int())
     return ops.flash_decode(q, k_cache, v_cache, lengths.int())
 
 
@@ -109,19 +164,42 @@ def prefill_attention_paged(q, k_arena, v_arena, block_tables, *, q_offset,
                                    window=window)
 
 
+def prefill_attention_paged_quant(q, k_arena, ks_arena, v_arena, vs_arena,
+                                  block_tables, *, q_offset, lengths,
+                                  window: int = 0):
+    """``prefill_attention_paged`` over int8 arenas: values
+    [P_phys, page, Hk, hd] with scale arenas [P_phys, page, Hk, 1], read
+    through the same tables."""
+    return ops.flash_prefill_paged_quant(q, k_arena, ks_arena, v_arena,
+                                         vs_arena, q_offset.int(),
+                                         lengths.int(), block_tables.int(),
+                                         window=window)
+
+
 def decode_attention_paged(q, k_arena, v_arena, block_tables, lengths, *,
-                           window: int = 0, block_size: int = 2048):
+                           window: int = 0, block_size: int = 2048,
+                           k_scale=None, v_scale=None):
     """Paged single-token decode. q: [B, 1, H, hd]; arenas
     [P_phys, page, Hk, hd]; block_tables [B, P_max]; lengths [B] valid
-    keys incl. the current one.  With ``window > 0`` (CPU tensors only,
-    like the slab path) the pages are gathered and the slab windowed
-    path runs on the linear view, which keeps every position."""
+    keys incl. the current one; ``k_scale``/``v_scale`` scale arenas
+    [P_phys, page, Hk, 1]: the arenas are int8.  With ``window > 0`` (CPU
+    tensors only, like the slab path) the pages are gathered and the slab
+    windowed path runs on the linear view, which keeps every position."""
     if window > 0 and window < block_tables.shape[1] * k_arena.shape[1]:
         if q.is_cuda:
             raise NotImplementedError(
                 "sliding-window decode has no CUDA kernel yet")
+        scales = {}
+        if k_scale is not None:
+            scales = dict(k_scale=paged_gather(k_scale, block_tables),
+                          v_scale=paged_gather(v_scale, block_tables))
         return decode_attention(q, paged_gather(k_arena, block_tables),
                                 paged_gather(v_arena, block_tables), lengths,
-                                window=window, block_size=block_size)
+                                window=window, block_size=block_size,
+                                **scales)
+    if k_scale is not None:
+        return ops.flash_decode_paged_quant(q, k_arena, k_scale, v_arena,
+                                            v_scale, lengths.int(),
+                                            block_tables.int())
     return ops.flash_decode_paged(q, k_arena, v_arena, lengths.int(),
                                   block_tables.int())

@@ -8,9 +8,12 @@ Cache writes are in place: an attention layer's cache leaves are views
 [B, S_max, Hk, hd] into the stacked [G, B, S_max, Hk, hd] slab cache, or
 [P_phys, page, Hk, hd] into the stacked [G, P_phys, page, Hk, hd] page
 arena, written with advanced-index assignment (the JAX package's
-functional update with donation becomes an in-place update here).  A
-Mamba-2 layer's leaves are per-slot states [B, ...] on both layouts,
-gathered by slot, advanced, and written back (only on active lanes).
+functional update with donation becomes an in-place update here).  An
+int8 cache (``"ks" in layer_cache``) holds int8 "k"/"v" and their scales
+"ks"/"vs" [..., Hk, 1]: its writers quantise the new rows once
+(``quantize_kv``) and write the four leaves at one index.  A Mamba-2
+layer's leaves are per-slot states [B, ...] on both layouts, gathered
+by slot, advanced, and written back (only on active lanes).
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ from repro_torch.models import mamba2
 from repro_torch.models.attention import (blocked_attention, decode_attention,
                                           decode_attention_paged,
                                           prefill_attention,
-                                          prefill_attention_paged)
+                                          prefill_attention_paged,
+                                          prefill_attention_paged_quant,
+                                          prefill_attention_quant, quantize_kv)
 from repro_torch.models.common import rms_norm
 from repro_torch.models.mlp import apply_mlp
 from repro_torch.models.moe import moe_output
@@ -68,19 +73,52 @@ def _cache_rows(slot_idx, M: int, device):
     return rows[:, None]
 
 
-def _write_kv(cache_k, cache_v, k_new, v_new, offsets, slot_idx=None):
-    """Write per-row chunks at per-row offsets, in place.
-
-    cache_*: [B, S_max, Hk, hd]; k_new: [M, S, Hk, hd]; offsets: [M].
-    Like ``dynamic_update_slice`` in the JAX package, a start that would
-    run past the end is clamped so the whole chunk fits."""
-    S_max = cache_k.shape[1]
+def _chunk_index(S_max: int, k_new, offsets, slot_idx):
+    """(rows [M, 1], positions [M, S]) of per-row chunks at per-row
+    offsets.  Like ``dynamic_update_slice`` in the JAX package, a start
+    that would run past the end is clamped so the whole chunk fits."""
     M, S = k_new.shape[:2]
     start = torch.clamp(offsets.long(), 0, S_max - S)
     pos = start[:, None] + torch.arange(S, device=k_new.device)[None, :]
-    rows = _cache_rows(slot_idx, M, k_new.device)
-    cache_k[rows, pos] = k_new
-    cache_v[rows, pos] = v_new
+    return _cache_rows(slot_idx, M, k_new.device), pos
+
+
+def _write_kv(cache_k, cache_v, k_new, v_new, offsets, slot_idx=None):
+    """Write per-row chunks at per-row offsets, in place.
+
+    cache_*: [B, S_max, Hk, hd]; k_new: [M, S, Hk, hd]; offsets: [M]."""
+    idx = _chunk_index(cache_k.shape[1], k_new, offsets, slot_idx)
+    cache_k[idx] = k_new
+    cache_v[idx] = v_new
+
+
+def _quantized(k_new, v_new):
+    """The four int8-cache leaves of new K/V rows, quantised once."""
+    kq, ks = quantize_kv(k_new)
+    vq, vs = quantize_kv(v_new)
+    return {"k": kq, "v": vq, "ks": ks, "vs": vs}
+
+
+def _write_leaves(layer_cache, rows, idx) -> None:
+    for name, r in rows.items():
+        leaf = layer_cache[name]
+        leaf[idx] = r.to(leaf.dtype)
+
+
+def _write_kv_quant(layer_cache, k_new, v_new, offsets, slot_idx=None):
+    """``_write_kv`` into an int8 cache: quantise the chunks, then write
+    values and scales at the same rows, in place."""
+    idx = _chunk_index(layer_cache["k"].shape[1], k_new, offsets, slot_idx)
+    _write_leaves(layer_cache, _quantized(k_new, v_new), idx)
+
+
+def _scatter_index(S_max: int, positions, slot_idx, M: int, device):
+    """Scatter rows and positions into a slab cache of ``S_max`` rows,
+    out-of-range positions redirected to the scratch row."""
+    pos = positions.long()
+    pos = torch.where((pos < 0) | (pos >= S_max),
+                      torch.full_like(pos, S_max - 1), pos)
+    return _cache_rows(slot_idx, M, device), pos
 
 
 def _slab_write_scatter(cache, rows_new, positions, slot_idx=None):
@@ -90,11 +128,17 @@ def _slab_write_scatter(cache, rows_new, positions, slot_idx=None):
     the scratch row ``S_max - 1`` (never read; the engine keeps real
     content out of it), so an inactive lane's rows are absorbed without
     clobbering its valid prefix."""
-    S_max = cache.shape[1]
-    pos = positions.long()
-    pos = torch.where((pos < 0) | (pos >= S_max),
-                      torch.full_like(pos, S_max - 1), pos)
-    cache[_cache_rows(slot_idx, rows_new.shape[0], rows_new.device), pos] = rows_new
+    cache[_scatter_index(cache.shape[1], positions, slot_idx,
+                         rows_new.shape[0], rows_new.device)] = rows_new
+
+
+def _slab_write_scatter_quant(layer_cache, k_new, v_new, positions,
+                              slot_idx=None):
+    """``_slab_write_scatter`` into an int8 cache: quantise once, write
+    the four leaves at one index, in place."""
+    idx = _scatter_index(layer_cache["k"].shape[1], positions, slot_idx,
+                         k_new.shape[0], k_new.device)
+    _write_leaves(layer_cache, _quantized(k_new, v_new), idx)
 
 
 def paged_write_index(block_tables, positions, num_pages: int, page: int):
@@ -124,6 +168,12 @@ def _paged_write(arena, rows, block_tables, positions):
                             arena.shape[1])] = rows
 
 
+def _paged_write_quant(layer_cache, k_new, v_new, paged_index):
+    """The paged write into int8 arenas: quantise once, write values and
+    scale arenas at the forward's one ``paged_write_index``, in place."""
+    _write_leaves(layer_cache, _quantized(k_new, v_new), paged_index)
+
+
 def apply_attn_mixer(p, x, cfg: ModelConfig, *, mode: str, positions,
                      lengths, layer_cache: Optional[Dict[str, torch.Tensor]],
                      window: int, write_positions=None, slot_idx=None,
@@ -136,43 +186,71 @@ def apply_attn_mixer(p, x, cfg: ModelConfig, *, mode: str, positions,
     [M, P_max] switches to the paged layout (the leaves are page
     arenas; row m's table); ``paged_index`` is then where the chunk's
     rows land (``paged_write_index``, write positions already applied).
+    An int8 cache (``"ks" in layer_cache``) is quantised on write and
+    read through the int8 dispatchers; the cache decides, as in JAX.
     Writes ``layer_cache`` in place and returns the mixer output."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     q, k = _rope(cfg, q, k, positions)
+    # an int8 cache carries its scales beside the values
+    quant = layer_cache is not None and "ks" in layer_cache
     if mode == "prefill" and layer_cache is None:
         out = blocked_attention(q, k, v, causal=True, window=window)
     elif mode == "prefill" and block_tables is not None:
         assert slot_idx is None
-        ck, cv = layer_cache["k"], layer_cache["v"]
-        ck[paged_index] = k
-        cv[paged_index] = v
-        out = prefill_attention_paged(q, ck, cv, block_tables,
-                                      q_offset=lengths, lengths=lengths + S,
-                                      window=window)
-    elif mode == "prefill":
-        ck, cv = layer_cache["k"], layer_cache["v"]
-        if write_positions is not None:
-            _slab_write_scatter(ck, k, write_positions, slot_idx)
-            _slab_write_scatter(cv, v, write_positions, slot_idx)
+        lc = layer_cache
+        kw = dict(q_offset=lengths, lengths=lengths + S, window=window)
+        if quant:
+            _paged_write_quant(lc, k, v, paged_index)
+            out = prefill_attention_paged_quant(
+                q, lc["k"], lc["ks"], lc["v"], lc["vs"], block_tables, **kw)
         else:
-            _write_kv(ck, cv, k, v, lengths, slot_idx)
-        out = prefill_attention(q, ck, cv, q_offset=lengths,
-                                lengths=lengths + S, window=window,
-                                slot_idx=slot_idx)
+            lc["k"][paged_index] = k
+            lc["v"][paged_index] = v
+            out = prefill_attention_paged(q, lc["k"], lc["v"], block_tables,
+                                          **kw)
+    elif mode == "prefill":
+        lc = layer_cache
+        if quant and write_positions is not None:
+            _slab_write_scatter_quant(lc, k, v, write_positions, slot_idx)
+        elif quant:
+            _write_kv_quant(lc, k, v, lengths, slot_idx)
+        elif write_positions is not None:
+            _slab_write_scatter(lc["k"], k, write_positions, slot_idx)
+            _slab_write_scatter(lc["v"], v, write_positions, slot_idx)
+        else:
+            _write_kv(lc["k"], lc["v"], k, v, lengths, slot_idx)
+        kw = dict(q_offset=lengths, lengths=lengths + S, window=window,
+                  slot_idx=slot_idx)
+        if quant:
+            out = prefill_attention_quant(q, lc["k"], lc["ks"], lc["v"],
+                                          lc["vs"], **kw)
+        else:
+            out = prefill_attention(q, lc["k"], lc["v"], **kw)
     elif mode == "decode" and block_tables is not None:
         assert layer_cache is not None and S == 1 and slot_idx is None
-        ck, cv = layer_cache["k"], layer_cache["v"]
-        ck[paged_index] = k
-        cv[paged_index] = v
-        out = decode_attention_paged(q, ck, cv, block_tables, lengths + 1,
-                                     window=window)
+        lc = layer_cache
+        scales = {}
+        if quant:
+            _paged_write_quant(lc, k, v, paged_index)
+            scales = dict(k_scale=lc["ks"], v_scale=lc["vs"])
+        else:
+            lc["k"][paged_index] = k
+            lc["v"][paged_index] = v
+        out = decode_attention_paged(q, lc["k"], lc["v"], block_tables,
+                                     lengths + 1, window=window, **scales)
     elif mode == "decode":
         assert layer_cache is not None and S == 1 and slot_idx is None
-        ck, cv = layer_cache["k"], layer_cache["v"]
+        lc = layer_cache
         wpos = lengths if write_positions is None else write_positions
-        _write_kv(ck, cv, k, v, wpos)
-        out = decode_attention(q, ck, cv, lengths + 1, window=window)
+        scales = {}
+        if quant:
+            _write_kv_quant(lc, k, v, wpos)
+            scales = dict(k_scale=lc["ks"], v_scale=lc["vs"])
+        else:
+            _write_kv(lc["k"], lc["v"], k, v, wpos)
+        out = decode_attention(q, lc["k"], lc["v"], lengths + 1,
+                               window=window, **scales)
     else:
         raise ValueError(mode)
     return out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"]

@@ -10,7 +10,8 @@ so G = num_layers).  The serving cache has the same keys: an
 attention slot holds {"k", "v"} with leaves [G, B, S_max, Hk, hd] (slab
 layout) or [G, P + 1, page, Hk, hd] (paged layout: a page arena
 addressed through per-slot block tables, the last page the write
-scratch page); a Mamba-2 slot holds per-slot states {"conv_x", "conv_B",
+scratch page), or with ``kv_quant`` int8 {"k", "v"} and their scales
+{"ks", "vs"} [..., Hk, 1] (every forward then runs over int8); a Mamba-2 slot holds per-slot states {"conv_x", "conv_B",
 "conv_C", "ssd"} [G, B, ...] on both layouts.  Keys, stacked axes and
 weight orientation (``x @ wq`` with wq [d, H * hd]) are the JAX
 package's, so ``from_jax_params`` carries its weights across one to one.
@@ -195,14 +196,17 @@ def num_kv_pages(cfg: ModelConfig, batch: int, max_seq: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               dtype=torch.float32, device="cuda",
-               num_pages: int = 0) -> Dict[str, Any]:
+               dtype=torch.float32, device="cuda", num_pages: int = 0,
+               kv_quant: bool = False) -> Dict[str, Any]:
     """Serving cache, one entry per group slot ``l{j}``.  Attention
     slots, slab layout: {"k", "v"} [G, batch, max_seq, Hk, hd];
     ``cfg.kv_layout == "paged"``: [G, num_pages + 1, page, Hk, hd], a
     page arena addressed through per-slot block tables, the extra last
     page the write scratch page (never read); ``num_pages`` 0 means
-    slab-capacity parity.  Mamba-2 slots, both layouts: per-slot states
+    slab-capacity parity.  ``kv_quant``: "k"/"v" in int8 with
+    per-(position, head) scales "ks"/"vs" [..., Hk, 1] in ``dtype``, on
+    either layout (the JAX package's int8 cache).  Every leaf is a
+    distinct buffer.  Mamba-2 slots, both layouts: per-slot states
     conv_x/conv_B/conv_C [G, batch, d_conv - 1, ch] in ``dtype`` and ssd
     [G, batch, nh, hd, N] in float32 (a recurrent state is a point
     summary at one length, not positional rows, so it is never paged)."""
@@ -220,9 +224,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     cache: Dict[str, Any] = {}
     for j, spec in enumerate(specs):
         if spec.kind == "attn":
+            vals = torch.int8 if kv_quant else dtype
             cache[f"l{j}"] = {
-                "k": torch.zeros(kv_shape, dtype=dtype, device=device),
-                "v": torch.zeros(kv_shape, dtype=dtype, device=device)}
+                "k": torch.zeros(kv_shape, dtype=vals, device=device),
+                "v": torch.zeros(kv_shape, dtype=vals, device=device)}
+            if kv_quant:
+                for name in ("ks", "vs"):
+                    cache[f"l{j}"][name] = torch.zeros(
+                        kv_shape[:-1] + (1,), dtype=dtype, device=device)
         else:
             st = mamba2.init_ssm_state(batch, cfg.d_model, cfg.ssm, dtype,
                                        "meta")

@@ -15,9 +15,13 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_paged_plain, decode_attention_plain, paged_gather)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_paged_quant_plain, decode_attention_quant_plain)
 from repro_torch.kernels.prefill_attention import (  # noqa: E402
-    prefill_attention_paged_plain, prefill_attention_plain)
+    prefill_attention_paged_plain, prefill_attention_paged_quant_plain,
+    prefill_attention_plain, prefill_attention_quant_plain)
 from repro_torch.kernels.ssd_scan import ssd_inputs  # noqa: E402
+from repro_torch.models.attention import quantize_kv  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # (16, 16, 128): OLMoE-1B-7B's heads, query group 1
@@ -261,3 +265,112 @@ def test_cuda_moe_gmm_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         ops.moe_gmm(x, torch.zeros(2, 16, 8, device="cuda",
                                    dtype=torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# the int8 attention entries (values with per-(position, head) scales)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hk,hd", HEADS)
+def test_cuda_quant_kernels_match_plain(cuda, dtype, H, Hk, hd):
+    """The int8 slab entries against their plain versions at the
+    serving shapes (S_max 8192, ragged lengths to 8000, chunks at offsets
+    0 and > 0), through a strided view of values and scales (every other
+    KV head) and a permuted slot order, with a window."""
+    tol, dt = TOL[dtype], getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(H + hd + 1)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    B, S = 6, 8192
+    wk, wks = quantize_kv(rnd(B, S, 2 * Hk, hd))
+    wv, wvs = quantize_kv(rnd(B, S, 2 * Hk, hd))
+    for kq, ks, vq, vs in ((wk[:, :, :Hk].contiguous(),
+                            wks[:, :, :Hk].contiguous(),
+                            wv[:, :, :Hk].contiguous(),
+                            wvs[:, :, :Hk].contiguous()),
+                           (wk[:, :, ::2], wks[:, :, ::2], wv[:, :, ::2],
+                            wvs[:, :, ::2])):
+        q, lens = rnd(B, 1, H, hd), _i32([1, 37, 1000, 3500, 8000, 5000])
+        assert _err(ops.flash_decode_quant(q, kq, ks, vq, vs, lens),
+                    decode_attention_quant_plain(q, kq, ks, vq, vs,
+                                                 lens)) <= tol
+        for Sq, window in ((3, 0), (40, 0), (130, 48)):
+            qo = _i32([0, 3000, 17])
+            ln, slots = qo + Sq, _i32([5, 0, 2])
+            qq = rnd(3, Sq, H, hd)
+            got = ops.flash_prefill_quant(qq, kq, ks, vq, vs, qo, ln,
+                                          window=window, slot_idx=slots)
+            want = prefill_attention_quant_plain(qq, kq, ks, vq, vs, qo, ln,
+                                                 window=window,
+                                                 slot_idx=slots)
+            assert _err(got, want) <= tol
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [64, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hk,hd", HEADS)
+def test_cuda_paged_quant_kernels_match_plain(cuda, page, dtype, H, Hk, hd):
+    """The int8 paged entries against their plain versions at the
+    serving shapes (8192 rows per table, lengths to 8000) through a
+    shuffled table with shared pages, and against the int8 slab entries
+    on the gathered rows."""
+    tol, dt = TOL[dtype], getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(H + hd + page + 1)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    rng = np.random.default_rng(page + hd + 1)
+    pmax = 8192 // page
+    lens = [3500, 2 * page + 37, 1, 37, 8000, 5000]
+    B = len(lens)
+    P = B * pmax
+    kq, ks = quantize_kv(rnd(P + 1, page, Hk, hd))
+    vq, vs = quantize_kv(rnd(P + 1, page, Hk, hd))
+    bt = torch.tensor(shared_tables(rng, lens, pmax, page, P), device="cuda")
+    L = _i32(lens)
+    q = rnd(B, 1, H, hd)
+    got = ops.flash_decode_paged_quant(q, kq, ks, vq, vs, L, bt)
+    assert _err(got, decode_attention_paged_quant_plain(
+        q, kq, ks, vq, vs, L, bt)) <= tol
+    g = [paged_gather(a, bt) for a in (kq, ks, vq, vs)]
+    assert _err(got, ops.flash_decode_quant(q, *g, L)) <= tol
+    for Sq, window in ((3, 0), (40, 0), (130, 48)):
+        rows = _i32([5, 0, 1])
+        qo = _i32([0, 3000, 17])
+        ln = qo + Sq
+        bt_m = bt[rows.long()].contiguous()
+        qq = rnd(3, Sq, H, hd)
+        got = ops.flash_prefill_paged_quant(qq, kq, ks, vq, vs, qo, ln, bt_m,
+                                            window=window)
+        want = prefill_attention_paged_quant_plain(qq, kq, ks, vq, vs, qo, ln,
+                                                   bt_m, window=window)
+        assert _err(got, want) <= tol
+        slab = ops.flash_prefill_quant(qq, *g, qo, ln, window=window,
+                                       slot_idx=rows)
+        assert _err(got, slab) <= tol
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_quant_wrappers_reject_what_they_do_not_take(cuda):
+    q = torch.zeros(2, 1, 4, 64, device="cuda")
+    kq = torch.zeros(2, 32, 2, 64, dtype=torch.int8, device="cuda")
+    ks = torch.ones(2, 32, 2, 1, device="cuda")
+    L = _i32([3, 5])
+    with pytest.raises(TypeError, match="int8"):
+        ops.flash_decode_quant(q, kq.float(), ks, kq.float(), ks, L)
+    with pytest.raises(TypeError, match="scales"):
+        ops.flash_decode_quant(q, kq, ks.bfloat16(), kq, ks.bfloat16(), L)
+    with pytest.raises(TypeError, match="scales"):
+        ops.flash_decode_quant(q, kq, ks[..., :1, :], kq, ks[..., :1, :], L)
+    wide = torch.zeros(2, 32, 2, 72, dtype=torch.int8, device="cuda")
+    before = ops.LAUNCHES["flash_decode_quant"]
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_decode_quant(q, wide[..., 8:], ks, wide[..., 8:], ks, L)
+    # the scales are read as scalars: a strided scale view is taken
+    wks = torch.ones(2, 32, 4, 3, device="cuda")[..., ::2, :1]
+    out = ops.flash_decode_quant(q, kq, wks, kq, wks, L)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape
+    assert ops.LAUNCHES["flash_decode_quant"] == before + 1
