@@ -128,6 +128,41 @@ later turn, ``forward_decode_megastep`` K=8 over the lanes):
              loop's over a bf16 cache (printed), and the device time by
              kernel of one megastep and one cold chunk.
 
+Training (kernel 9, whole-sequence flash attention, under the
+``FlashAttention`` autograd Function) and sliding-window decode:
+
+3-4.       — ``parity_flash``: kernel 9 against its plain version at the
+             card tests' head shapes (query groups 8, 3, 7, 4 and 1; hd 64
+             and 128), f32 and bf16, causal at S 2048 with and without a
+             window of 256, non-causal and causal at the ragged S 1000: o
+             within TOL, the row statistics m within 1e-4 and l within
+             1e-4 relative; then the Function's dq, dk, dv against
+             autograd through the plain version in f32 (1e-4).
+             ``parity_window_decode``: the four decode entries with
+             windows 64 and 1024 against their plain versions (lengths 1,
+             below, at and above the window; slab and paged).
+             ``timing_flash``: kernel 9 at B 4, S 2048, causal, SmolLM-360M
+             heads 15/5/64 and Qwen2.5-3B heads 16/2/128 in f32 and bf16,
+             beside its plain version, one SDPA call (``is_causal``,
+             ``enable_gqa``; timed only here) and the bound max(flops /
+             peak of the type, bytes / 3.35e12), causal flops 2 B H S^2 hd;
+             and the four decode entries at window 1024 against window 0.
+24. identity_train — 4 train steps of the smollm-360m smoke config (f32,
+             remat) on the card and on the CPU from the same weights and
+             batches: losses and gradient norms within 1e-4 relative,
+             final parameters within 1e-5 but for at most 0.1% of
+             elements (Adam's sign at rounding-level gradients); then the
+             mixtral-8x22b smoke config (window 64) prefills 100 tokens
+             and decodes a 24-step megastep on both layouts, card tokens
+             equal to the CPU's.
+25. slice_train — full-width, full-depth SmolLM-360M training through
+             ``repro_torch.launch.train`` (8 steps of 4 x 2048 tokens, f32,
+             remat): kernel 9 launches 2 x 32 x 8 times and no other kernel
+             launches; the loss falls; then one profiled step's device
+             time split into kernel 9, the attention backward, the MLP and
+             projection matmuls, the logits and CE, the optimizer and the
+             rest.
+
 The last lines are the kernel list, the nvidia-smi line, the kernel JSON
 line and the result JSON line.
 """
@@ -159,6 +194,9 @@ SSM_KERNELS = ("ssd_scan",)
 MOE_KERNELS = ("moe_gmm",)
 INT8_KERNELS = ("flash_prefill_quant", "flash_decode_quant")
 INT8_PAGED_KERNELS = ("flash_prefill_paged_quant", "flash_decode_paged_quant")
+FLASH_KERNELS = ("flash_attention",)
+DECODE_KERNELS = ("flash_decode", "flash_decode_paged", "flash_decode_quant",
+                  "flash_decode_paged_quant")
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 SOURCES = {
     "flash_prefill": ("src/repro_torch/kernels/csrc/prefill_attention.cu",
@@ -186,6 +224,8 @@ SOURCES = {
     "flash_decode_paged_quant": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/models/attention.py:338"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:86"),
 }
 
 
@@ -1273,7 +1313,7 @@ def _on(tree, device):
     """A copy of a weight tree on ``device``."""
     if isinstance(tree, dict):
         return {k: _on(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    return tree.to(device, copy=True)
 
 
 def greedy_drive(cfg, params, sessions, *, device, dtype, kv_quant: bool,
@@ -1588,6 +1628,415 @@ def phase_slices_int8():
     return out
 
 
+# ---------------------------------------------------------------------------
+# training (kernel 9) and sliding-window decode
+# ---------------------------------------------------------------------------
+
+# the card tests' head shapes (tests/test_torch_gpu.py HEADS), hd 64 and 128
+FLASH_HEADS = ((16, 2, 128), (15, 5, 64), (28, 4, 128), (8, 2, 64),
+               (16, 16, 128))
+TRAIN_ARGS = ["--full-config", "--arch", "smollm-360m", "--steps", "8",
+              "--batch", "4", "--seq", "2048", "--lr", "1e-3",
+              "--log-every", "1"]
+
+
+def phase_parity_flash():
+    """Kernel 9 against its plain version (causal at S 2048 with and
+    without a window of 256, non-causal and causal at the ragged S 1000):
+    o within TOL, m within 1e-4, l within 1e-4 relative.  Then the
+    FlashAttention Function's dq, dk, dv (kernel 9 forward, matmul
+    backward) against autograd through the plain version, f32, 1e-4."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.attention import train_attention
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+    for H, Hk, hd in FLASH_HEADS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal, window, S in ((True, 0, 2048), (True, 256, 2048),
+                                      (False, 0, 1000), (True, 0, 1000)):
+                B = 2 if S == 1000 else 1
+                q = _rand(gen, (B, S, H, hd), dtype)
+                k, v = (_rand(gen, (B, S, Hk, hd), dtype) for _ in range(2))
+                o, m, l = ops.flash_attention(q, k, v, causal=causal,
+                                              window=window)
+                po, pm, pl = flash_attention_plain(q, k, v, causal=causal,
+                                                   window=window)
+                err, em = _max_err(o, po), _max_err(m, pm)
+                el = ((l - pl).abs() / pl).max().item()
+                torch.cuda.synchronize()
+                log(f"[parity_flash] {H}/{Hk}/{hd} {str(dtype)[6:]} B={B} "
+                    f"S={S} causal={causal} window={window} "
+                    f"max_abs_err o={err:.3e} m={em:.3e} l_rel={el:.3e}")
+                assert err <= TOL[dtype] and em <= 1e-4 and el <= 1e-4, \
+                    ("flash_attention", err, em, el)
+                worst = max(worst, err)
+    for H, Hk, hd in ((15, 5, 64), (16, 2, 128)):
+        for window in (0, 256):
+            q, do = (_rand(gen, (2, 1000, H, hd), torch.float32)
+                     for _ in range(2))
+            k, v = (_rand(gen, (2, 1000, Hk, hd), torch.float32)
+                    for _ in range(2))
+            grads = []
+            for fn in (lambda *a: train_attention(*a, window=window),
+                       lambda *a: flash_attention_plain(*a,
+                                                        window=window)[0]):
+                leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+                fn(*leaves).backward(do)
+                grads.append([x.grad for x in leaves])
+            errs = [_max_err(a, b) for a, b in zip(*grads)]
+            torch.cuda.synchronize()
+            log(f"[parity_flash] grads {H}/{Hk}/{hd} f32 B=2 S=1000 "
+                f"window={window}: max_abs_err dq={errs[0]:.3e} "
+                f"dk={errs[1]:.3e} dv={errs[2]:.3e} (limit 1e-4)")
+            assert max(errs) <= 1e-4, ("flash_attention grads", errs)
+    return {"flash_attention": worst}
+
+
+def phase_parity_window_decode():
+    """The four decode entries with a window (64, 1024) against their
+    plain versions at S_max 8192: lengths 1, below, at and above the
+    window and two long ones; slab, paged (page 64, shuffled tables with
+    shared pages), bf16 and f32 values and int8 ones.  Returns the worst
+    error per entry."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_paged_plain, decode_attention_paged_quant_plain,
+        decode_attention_plain, decode_attention_quant_plain)
+    from repro_torch.models.attention import quantize_kv
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rng = np.random.default_rng(6)
+    worst = {k: 0.0 for k in DECODE_KERNELS}
+    S, B = 8192, 6
+    pmax, P = S // PAGE, B * (S // PAGE)
+    for H, Hk, hd in PARITY_HEADS:
+        for dtype in (torch.bfloat16, torch.float32):
+            kc, vc = (_rand(gen, (B, S, Hk, hd), dtype) for _ in range(2))
+            ka, va = (_rand(gen, (P + 1, PAGE, Hk, hd), dtype)
+                      for _ in range(2))
+            (kq, ks), (vq, vs) = quantize_kv(kc), quantize_kv(vc)
+            (kaq, kas), (vaq, vas) = quantize_kv(ka), quantize_kv(va)
+            q = _rand(gen, (B, 1, H, hd), dtype)
+            for w in (64, 1024):
+                lens = [1, w - 1, w, w + 1, 5000, 8000]
+                L = _i32(lens)
+                bt = shared_tables(rng, lens, pmax, P)
+                errs = {
+                    "flash_decode": _max_err(
+                        ops.flash_decode(q, kc, vc, L, window=w),
+                        decode_attention_plain(q, kc, vc, L, w)),
+                    "flash_decode_paged": _max_err(
+                        ops.flash_decode_paged(q, ka, va, L, bt, window=w),
+                        decode_attention_paged_plain(q, ka, va, L, bt, w)),
+                    "flash_decode_quant": _max_err(
+                        ops.flash_decode_quant(q, kq, ks, vq, vs, L,
+                                               window=w),
+                        decode_attention_quant_plain(q, kq, ks, vq, vs, L,
+                                                     w)),
+                    "flash_decode_paged_quant": _max_err(
+                        ops.flash_decode_paged_quant(q, kaq, kas, vaq, vas,
+                                                     L, bt, window=w),
+                        decode_attention_paged_quant_plain(
+                            q, kaq, kas, vaq, vas, L, bt, w))}
+                torch.cuda.synchronize()
+                log(f"[parity_window_decode] {H}/{Hk}/{hd} "
+                    f"{str(dtype)[6:]} window={w} lens={lens} max_abs_err "
+                    + " ".join(f"{k}={e:.3e}" for k, e in errs.items()))
+                for name, e in errs.items():
+                    assert e <= TOL[dtype], (name, w, e)
+                    worst[name] = max(worst[name], e)
+    return worst
+
+
+def phase_timing_flash():
+    """Kernel 9 at the training slice's shapes, B 4, S 2048, causal:
+    SmolLM-360M heads 15/5/64 and Qwen2.5-3B heads 16/2/128, in f32 (the
+    slice's type) and bf16, beside its plain version, one SDPA call
+    (``is_causal``, ``enable_gqa``; timed only here) and the bound
+    max(flops / peak, bytes / 3.35e12) with causal flops 2 B H S^2 hd
+    (half of the full 4 B H S^2 hd) and q, k, v read once, o, m and l
+    written once.  The kernel line's entry is SmolLM-360M's in f32.
+    Then the four decode entries at window 1024 against window 0 at
+    the decode timing shapes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    res = {}
+    B, S = 4, 2048
+    for arch, (H, Hk, hd) in (("smollm-360m", (15, 5, 64)),
+                              ("qwen2.5-3b", (16, 2, 128))):
+        for dtype in (torch.float32, torch.bfloat16):
+            es = torch.finfo(dtype).bits // 8
+            q = _rand(gen, (B, S, H, hd), dtype)
+            k, v = (_rand(gen, (B, S, Hk, hd), dtype) for _ in range(2))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            flops = 2 * B * H * S * S * hd
+            nbytes = (2 * B * S * H * hd + 2 * B * S * Hk * hd) * es \
+                + 2 * B * H * S * 4
+            bound, by = _bound_ms(flops, nbytes, dtype)
+            r = dict(
+                ms=_time_ms(lambda: ops.flash_attention(q, k, v), iters=20),
+                plain_ms=_time_ms(lambda: flash_attention_plain(q, k, v),
+                                  iters=5, warmup=1),
+                library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), iters=20),
+                bound_ms=bound, bound_by=by)
+            log(f"[timing_flash] {arch} heads {H}/{Hk}/{hd} "
+                f"{str(dtype)[6:]} B={B} S={S} causal: kernel_ms="
+                f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} sdpa_ms="
+                f"{r['library_ms']:.4f} bound_ms={bound:.5f} ({by}) "
+                f"tflops={flops / r['ms'] / 1e9:.2f}")
+            if arch == "smollm-360m" and dtype == torch.float32:
+                res["flash_attention"] = r
+    # windowed decode at the decode timing shapes (Qwen heads, bf16)
+    dtype, H, Hk, hd, Smax, B = torch.bfloat16, 16, 2, 128, 8192, 6
+    lens = [1, 37, 1000, 3500, 8000, 5000]
+    L = _i32(lens)
+    q = _rand(gen, (B, 1, H, hd), dtype)
+    kc, vc = (_rand(gen, (B, Smax, Hk, hd), dtype) for _ in range(2))
+    from repro_torch.models.attention import quantize_kv
+    (kq, ks), (vq, vs) = quantize_kv(kc), quantize_kv(vc)
+    pmax = Smax // PAGE
+    bt = torch.arange(B * pmax, dtype=torch.int32,
+                      device="cuda").reshape(B, pmax)
+    ka, va = (x.reshape(B * pmax, PAGE, Hk, hd) for x in (kc, vc))
+    kaq, kas, vaq, vas = (x.reshape(B * pmax, PAGE, Hk, x.shape[-1])
+                          for x in (kq, ks, vq, vs))
+    calls = {
+        "flash_decode": lambda w: ops.flash_decode(q, kc, vc, L, window=w),
+        "flash_decode_paged": lambda w: ops.flash_decode_paged(
+            q, ka, va, L, bt, window=w),
+        "flash_decode_quant": lambda w: ops.flash_decode_quant(
+            q, kq, ks, vq, vs, L, window=w),
+        "flash_decode_paged_quant": lambda w: ops.flash_decode_paged_quant(
+            q, kaq, kas, vaq, vas, L, bt, window=w)}
+    for name, fn in calls.items():
+        t0 = _time_ms(lambda: fn(0))
+        t1 = _time_ms(lambda: fn(1024))
+        log(f"[timing_window_decode] {name} heads {H}/{Hk}/{hd} bf16 B={B} "
+            f"lens={lens}: window=0 {t0:.4f} ms, window=1024 {t1:.4f} ms "
+            f"({t1 / t0:.3f}x)")
+    return res
+
+
+def phase_identity_train():
+    """Four ``make_train_step`` steps of the smollm-360m smoke config in
+    f32, remat on, from the same weights and synthetic batches on the
+    card (kernel 9) and on the CPU (its plain version): per-step loss and
+    grad_norm within 1e-4 relative; every final parameter within 1e-5,
+    except at most 0.1% of elements, where a gradient at the rounding
+    level lets Adam's normalised step take the other sign (each step moves
+    an element by about lr, so those stay within 2 lr per step).  Then
+    the mixtral-8x22b smoke config (window 64) in f32: a 100-token
+    prompt and a 24-step decode megastep on both layouts, card tokens
+    equal to the CPU's."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import (forward_decode_megastep, forward_prefill,
+                                    init_cache, init_params)
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training.data import DataConfig, SyntheticCorpus
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False       # full f32 products
+    cfg = get_smoke_config("smollm-360m")
+    steps, lr = 4, 1e-3
+    opt_cfg = AdamWConfig(lr=lr, warmup_steps=1, total_steps=steps)
+    base = init_params(cfg, torch.Generator().manual_seed(0))
+    data = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                      batch_size=4)).batches()
+    batches = [torch.from_numpy(next(data)["tokens"]) for _ in range(steps)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = _on(base, dev)
+        opt = init_opt_state(opt_cfg, params)
+        step = make_train_step(cfg, opt_cfg, remat=True)
+        ops.reset_launches()
+        stats = []
+        for b in batches:
+            params, opt, st = step(params, opt, {"tokens": b.to(dev)})
+            stats.append((float(st["loss"]), float(st["grad_norm"])))
+        runs[dev] = (stats, [p.cpu() for p in tree_leaves(params)],
+                     ops.LAUNCHES["flash_attention"])
+    (card, card_p, n9), (cpu, cpu_p, n9_cpu) = runs["cuda"], runs["cpu"]
+    want9 = 2 * cfg.num_layers * steps
+    assert n9 == want9 and n9_cpu == 0, (n9, want9, n9_cpu)
+    rel = max(max(abs(a - b) / abs(b) for a, b in zip(x, y))
+              for x, y in zip(card, cpu))
+    diffs = torch.cat([(a - b).abs().reshape(-1)
+                       for a, b in zip(card_p, cpu_p)])
+    over = int((diffs > 1e-5).sum())
+    log(f"[identity_train] {cfg.name} f32 remat, {steps} steps of 4 x 256 "
+        f"tokens, lr {lr}: loss card {[round(x[0], 6) for x in card]} "
+        f"cpu {[round(x[0], 6) for x in cpu]}; loss/grad_norm max rel diff "
+        f"{rel:.3e} (limit 1e-4); params max abs diff "
+        f"{diffs.max().item():.3e}, {over} of {diffs.numel()} over 1e-5 "
+        f"(limit 0.1%); flash_attention launches {n9} = 2 x "
+        f"{cfg.num_layers} layers x {steps} steps")
+    assert rel <= 1e-4, rel
+    assert over <= 1e-3 * diffs.numel(), over
+    assert diffs.max().item() <= 2 * lr * steps + 1e-5, diffs.max().item()
+
+    mix = get_smoke_config("mixtral-8x22b")
+    assert mix.sliding_window == 64
+    mparams = init_params(mix, torch.Generator().manual_seed(0))
+    toks = torch.tensor(np.random.default_rng(1).integers(
+        0, mix.vocab_size, (2, 100)).astype(np.int32))
+    for layout in ("slab", "paged"):
+        cfg_l = dataclasses.replace(mix, kv_layout=layout, kv_page_size=16)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            p = _on(mparams, dev)
+            cache = init_cache(cfg_l, 2, 256, device=dev)
+            kw = {}
+            if layout == "paged":
+                kw["block_tables"] = torch.arange(
+                    32, dtype=torch.int32, device=dev).reshape(2, 16)
+            logits, cache, lens = forward_prefill(
+                p, cfg_l, toks.to(dev), cache,
+                torch.zeros(2, dtype=torch.int32, device=dev), **kw)
+            seq, _, _, _ = forward_decode_megastep(
+                p, cfg_l, logits.argmax(-1).int(), cache, lens,
+                torch.ones(2, dtype=torch.bool, device=dev), num_steps=24,
+                **kw)
+            out[dev] = seq.cpu()
+        log(f"[identity_window] {mix.name} (window {mix.sliding_window}) "
+            f"f32 {layout}: 100-token prompt, 24 megastep tokens x 2 lanes, "
+            f"card == cpu: {torch.equal(out['cuda'], out['cpu'])}")
+        assert torch.equal(out["cuda"], out["cpu"]), layout
+    free_device_memory()
+
+
+MM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul")
+
+
+def _train_category(e, vocab: int) -> str:
+    """Which part of a train step a CPU op's kernels belong to, from its
+    name, its input shapes and its ancestors' names."""
+    names = []
+    x = e
+    while x is not None:
+        names.append(x.name)
+        x = x.cpu_parent
+    joined = " | ".join(names).lower()
+    shapes = [s for s in (e.input_shapes or []) if s]
+    if "optimizer" in names:
+        return "optimizer"
+    if "flashattentionbackward" in joined:
+        return "attention backward (FlashAttentionBackward)"
+    if ("log_softmax" in joined or "gather" in joined or (
+            e.name in MM_OPS and any(vocab in s for s in shapes))):
+        return "logits and CE"
+    if e.name in MM_OPS:
+        return "MLP and projection matmuls"
+    return "other (norms, rope, activations, embedding, grads' sums)"
+
+
+def split_train_step(events, vocab: int):
+    """Device ms of one profiled train step by part: kernel 9 by kernel
+    name, every other kernel by the CPU op that launched it
+    (``_train_category``); kernels no op claims count as other."""
+    from torch.autograd import DeviceType
+    total = k9 = 0.0
+    parts = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            us = _device_us(e)
+            total += us
+            if "flash_attention" in e.name:
+                k9 += us
+        elif e.device_type == DeviceType.CPU:
+            for kern in e.kernels:
+                if "flash_attention" not in kern.name:
+                    c = _train_category(e, vocab)
+                    parts[c] = parts.get(c, 0.0) + kern.duration
+    parts = {"kernel 9 (flash_attention)": k9, **parts}
+    rest = "other (norms, rope, activations, embedding, grads' sums)"
+    parts[rest] = parts.get(rest, 0.0) + total - sum(parts.values())
+    return total / 1e3, {k: v / 1e3 for k, v in parts.items()}
+
+
+def phase_slice_train():
+    """Full-width, full-depth SmolLM-360M training through
+    ``repro_torch.launch.train`` (``parse_args`` and ``run``, what its
+    ``main`` calls): 8 AdamW steps of 4 x 2048 tokens, f32, remat.
+    Kernel 9 must launch 2 x 32 x 8 times (remat recomputes each layer's
+    forward) and no other kernel at all; the loss must fall from the
+    first step to the last.  Then one more step of the same model,
+    profiled: device time by part and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import init_params
+    from repro_torch.training import train_step as ts_mod
+    from repro_torch.training.data import DataConfig, SyntheticCorpus
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    args = train.parse_args(TRAIN_ARGS)
+    cfg = get_config(args.arch)
+    log(f"[slice_train] {cfg.name} full width and depth ({cfg.num_layers} "
+        f"layers, d {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}"
+        f"/{cfg.head_dim}, vocab {cfg.vocab_size}), f32 params, remat, "
+        f"{args.steps} steps of {args.batch} x {args.seq} tokens, lr "
+        f"{args.lr}")
+    ops.reset_launches()
+    rec = train.run(args)
+    launches = dict(ops.LAUNCHES)
+    want = 2 * cfg.num_layers * args.steps
+    assert launches["flash_attention"] == want, (launches, want)
+    for name in SOURCES:
+        if name not in FLASH_KERNELS:
+            assert launches[name] == 0, f"{name} was launched on slice_train"
+    losses = rec["losses"]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    log(f"[slice_train] losses {[round(x, 4) for x in losses]}: first "
+        f"{losses[0]:.4f} last {losses[-1]:.4f} | step ms p50="
+        f"{1e3 * np.median(rec['step_s']):.1f} (each: "
+        f"{[round(1e3 * x, 1) for x in rec['step_s']]}) | train tok/s="
+        f"{rec['tok_s']:.0f} | max_memory_allocated_GB={rec['peak_gb']:.2f} "
+        f"| flash_attention launches {launches['flash_attention']} = 2 x "
+        f"{cfg.num_layers} x {args.steps}")
+    free_device_memory()
+
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         torch.float32)
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=1, total_steps=args.steps)
+    opt = init_opt_state(opt_cfg, params)
+    step = ts_mod.make_train_step(cfg, opt_cfg, remat=True)
+    batch = {"tokens": torch.from_numpy(next(SyntheticCorpus(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq,
+        batch_size=args.batch)).batches())["tokens"]).cuda()}
+    params, opt, _ = step(params, opt, batch)             # warm
+    torch.cuda.synchronize()
+    real = ts_mod.apply_updates
+
+    def marked(*a, **k):
+        with record_function("optimizer"):
+            return real(*a, **k)
+    ts_mod.apply_updates = marked
+    try:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            step(params, opt, batch)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ts_mod.apply_updates = real
+    busy, parts = split_train_step(prof.events(), cfg.padded_vocab)
+    step_ms = 1e3 * float(np.median(rec["step_s"]))
+    log(f"[profile_train] one step: device_ms={busy:.2f}; against the "
+        f"slice's step wall p50 {step_ms:.1f} ms device_busy="
+        f"{busy / step_ms:.1%} (the profiled step's own wall, profiler on: "
+        f"{wall * 1e3:.1f} ms)")
+    for k, v in sorted(parts.items(), key=lambda kv: -kv[1]):
+        log(f"[profile_train]    {v:10.3f} ms  {v / busy:6.1%}  {k}")
+    del params, opt, prof
+    free_device_memory()
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -1600,12 +2049,16 @@ def main() -> int:
     worst.update(phase_parity_ssm())
     worst.update(phase_parity_moe())
     worst.update(phase_parity_int8())
+    worst.update(phase_parity_flash())
+    for k, e in phase_parity_window_decode().items():
+        worst[k] = max(worst[k], e)
     stamp("parity")
     timing = phase_timing()
     timing.update(phase_timing_paged())
     timing.update(phase_timing_ssm())
     timing.update(phase_timing_moe())
     timing.update(phase_timing_int8())
+    timing.update(phase_timing_flash())
     free_device_memory()
     stamp("timing")
     phase_identity(paged=False)
@@ -1642,15 +2095,19 @@ def main() -> int:
     phase_identity_int8(paged=True)
     int8 = phase_slices_int8()
     stamp("int8 slices")
+    phase_identity_train()
+    launches_train = phase_slice_train()
+    stamp("training slice")
     # each kernel's launches are those of the slice that runs its path
     # (the scan: the slab Mamba-2 slice; its paged twin's count is in the
     # slice_ssm_paged line; the grouped matmul: slice_moe; the int8
-    # entries: slice_int8 and slice_int8_paged)
+    # entries: slice_int8 and slice_int8_paged; kernel 9: slice_train)
     launches.update({k: launches_paged[k] for k in PAGED_KERNELS})
     launches.update({k: launches_ssm[k] for k in SSM_KERNELS})
     launches.update({k: launches_moe[k] for k in MOE_KERNELS})
     launches.update({k: int8[False][k] for k in INT8_KERNELS})
     launches.update({k: int8[True][k] for k in INT8_PAGED_KERNELS})
+    launches.update({k: launches_train[k] for k in FLASH_KERNELS})
     log("kernels: " + "; ".join(
         f"{k} parity=ok max_abs_err={worst[k]:.3e} launches={launches[k]}"
         for k in SOURCES))

@@ -13,8 +13,12 @@
 // `decode_attention_paged` (`blocked_attention_quant` over the cache,
 // keys and values f32(int8) * f32(scale)).  Same function: for batch row b
 // and KV head h, the G = H / Hk query heads of that KV head attend keys
-// [0, lengths[b]) with an online softmax in f32 (NEG_INF = -1e30 masking,
-// max(l, 1e-30) denominator floor); the output has the input's type.
+// [lo, lengths[b]) with an online softmax in f32 (NEG_INF = -1e30 masking,
+// max(l, 1e-30) denominator floor); the output has the input's type.  lo
+// is 0, or max(0, lengths[b] - window) for a sliding window (window > 0):
+// the XLA window branch of src/repro/models/attention.py
+// `decode_attention`, which slices [max(0, len - window), len) and
+// attends it, has no TPU kernel and is this kernel's window argument.
 //
 // What bounds it on the H100: bytes.  One decode step reads each valid
 // K/V row once (2 * lengths[b] * hd * sizeof(T) per (b, h)) and does
@@ -22,7 +26,9 @@
 // the card.  The design therefore reads nothing it does not need:
 //   * the tile loop stops at ceil(lengths[b] / BK) and never touches
 //     rows past the valid length (the TPU kernel's revisit-block index
-//     map becomes a length-bounded loop);
+//     map becomes a length-bounded loop); with a window it starts at the
+//     tile holding lo and loads no row below lo, so bytes are O(window)
+//     and the paged entries look up no page below the first live tile;
 //   * K and V are read in place from the model's [B, S_max, Hk, hd]
 //     layout through strides (no transpose or copy of the cache);
 //   * the G query rows of one KV head share every K/V tile staged in
@@ -139,7 +145,8 @@ struct PagedRows {
 // grid (Hk, B); block kThreads.  q/out: [B, 1, H, hd] rows addressed by
 // (b * q_sb + head * q_sh); K at addr.page(b, pos) * k_sp +
 // addr.within(pos) * k_ss + h * k_sh (likewise V), a unit stride on hd,
-// 16-byte aligned rows; keys [0, min(lengths[b], cap)).  C: the cache
+// 16-byte aligned rows; keys [lo, min(lengths[b], cap)) with lo as in the
+// header (window 0: lo = 0).  C: the cache
 // values' type, T or int8_t; with int8 the scales ks/vs (type T) sit at
 // the same (page, row, head) through their own strides.
 template <typename T, typename C, int HD, typename Rows>
@@ -147,7 +154,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
                     const C* __restrict__ v, const T* __restrict__ ks,
                     const T* __restrict__ vs, const int* __restrict__ lengths,
-                    T* __restrict__ out, int G, int cap,
+                    T* __restrict__ out, int G, int cap, int window,
                     long long q_sb, long long q_sh, Rows addr,
                     long long k_sp, long long k_ss, long long k_sh,
                     long long v_sp, long long v_ss, long long v_sh,
@@ -171,6 +178,8 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
   const int h = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
   const int warp = t / 32, lane = t % 32;
   const int L = min(lengths[b], cap);  // keys past the cache do not exist
+  const int lo = window > 0 ? max(0, L - window) : 0;   // first live key
+  const int start0 = lo / kBK * kBK;                      // its tile
   for (int i = t; i < kMaxG * HD; i += kThreads) {
     const int g = i / HD, d = i % HD;
     q_s[g][d] = g < G
@@ -197,7 +206,7 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
     for (int u = 0; u < kVecs; ++u) {
       const int e = (t + u * kThreads) * kV, pos = start + e / HD, d = e % HD;
       const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-      if (pos < L) {
+      if (pos >= lo && pos < L) {
         const long long pg = addr.page(b, pos), w = addr.within(pos);
         kr[u] = *reinterpret_cast<const uint4*>(kb + pg * k_sp + w * k_ss + d);
         vr[u] = *reinterpret_cast<const uint4*>(vb + pg * v_sp + w * v_ss + d);
@@ -215,10 +224,10 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
       }
     }
   };
-  load_tile(0);
+  load_tile(start0);
   __syncthreads();                               // q_s, m_s, l_s ready
 
-  for (int start = 0; start < L; start += kBK) {
+  for (int start = start0; start < L; start += kBK) {
     __syncthreads();                             // previous tile fully used
 #pragma unroll
     for (int u = 0; u < kVecs; ++u) {
@@ -255,13 +264,14 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
         b0 += q_s[gb][d] * k0;
         b1 += q_s[gb][d + 1] * k1;
       }
-      const bool key_ok = start + j < L;
+      const bool key_ok = start + j >= lo && start + j < L;
       // rows of padded heads (g >= G) hold p = 0 and are never normalised
       p_s[ga][j] = ga < G ? (key_ok ? a0 + a1 : kNegInf) : 0.f;
       p_s[gb][j] = gb < G ? (key_ok ? b0 + b1 : kNegInf) : 0.f;
     }
     __syncthreads();
-    // every tile holds >= 1 valid key, so m_new is finite and masked
+    // every tile holds >= 1 valid key (the first holds lo), so m_new is
+    // finite and masked
     // scores underflow to p = 0
     for (int g = warp; g < G; g += kThreads / 32) {
       const float s = p_s[g][lane];
@@ -304,13 +314,13 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
 template <typename T, typename C, typename Rows>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
                    const void* vs, const int* lengths, void* out, int B, int Hk, int G,
-                   int cap, int hd, const long long* st, Rows addr, float scale,
-                   cudaStream_t stream) {
+                   int cap, int hd, int window, const long long* st, Rows addr,
+                   float scale, cudaStream_t stream) {
   dim3 grid(Hk, B);
 #define REPRO_DECODE_LAUNCH(HD)                                                         \
   flash_decode_kernel<T, C, HD, Rows><<<grid, kThreads, 0, stream>>>(                   \
       (const T*)q, (const C*)k, (const C*)v, (const T*)ks, (const T*)vs, lengths,       \
-      (T*)out, G, cap, st[0], st[1], addr, st[2], st[3], st[4], st[5], st[6], st[7],    \
+      (T*)out, G, cap, window, st[0], st[1], addr, st[2], st[3], st[4], st[5], st[6], st[7],    \
       st[8], st[9], st[10], st[11], st[12], st[13], st[14], st[15], scale)
   if (hd == 128)
     REPRO_DECODE_LAUNCH(128);
@@ -325,18 +335,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
 template <bool kQuant, typename Rows>
 int dispatch(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* lengths, void* out, int dtype, int B, int Hk,
-             int G, int cap, int hd, const long long* st, Rows addr, float scale,
-             void* stream) {
+             int G, int cap, int hd, int window, const long long* st, Rows addr,
+             float scale, void* stream) {
   if (G < 1 || G > kMaxG) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int* lens = (const int*)lengths;
   if (dtype == 0)
     return (int)launch<float, std::conditional_t<kQuant, int8_t, float>>(
-        q, k, v, ks, vs, lens, out, B, Hk, G, cap, hd, st, addr, scale, s);
+        q, k, v, ks, vs, lens, out, B, Hk, G, cap, hd, window, st, addr, scale, s);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16, std::conditional_t<kQuant, int8_t, __nv_bfloat16>>(
-        q, k, v, ks, vs, lens, out, B, Hk, G, cap, hd, st, addr, scale, s);
+        q, k, v, ks, vs, lens, out, B, Hk, G, cap, hd, window, st, addr, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -346,7 +356,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks,
 // Slab cache: k/v [B, S, Hk, hd] with strides (sb, ss, sh).
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             const void* lengths, void* out, int dtype, int B,
-                            int Hk, int G, int S, int hd, long long q_sb, long long q_sh,
+                            int Hk, int G, int S, int hd, int window, long long q_sb,
+                            long long q_sh,
                             long long k_sb, long long k_ss, long long k_sh,
                             long long v_sb, long long v_ss, long long v_sh,
                             long long o_sb, long long o_sh, float scale,
@@ -354,7 +365,7 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
   const long long st[16] = {q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                             o_sb, o_sh, 0,    0,    0,    0,    0,    0};
   return dispatch<false>(q, k, v, nullptr, nullptr, lengths, out, dtype, B, Hk, G, S,
-                         hd, st, SlabRows{}, scale, stream);
+                         hd, window, st, SlabRows{}, scale, stream);
 }
 
 // Paged arena: k/v [P_phys, page, Hk, hd] with strides (sp, ss, sh);
@@ -362,7 +373,8 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
 extern "C" int flash_decode_paged(const void* q, const void* k, const void* v,
                                   const void* lengths, const void* block_tables,
                                   void* out, int dtype, int B, int Hk, int G,
-                                  int pmax, int page_shift, int hd, long long q_sb,
+                                  int pmax, int page_shift, int hd, int window,
+                                  long long q_sb,
                                   long long q_sh, long long k_sp, long long k_ss,
                                   long long k_sh, long long v_sp, long long v_ss,
                                   long long v_sh, long long o_sb, long long o_sh,
@@ -371,7 +383,7 @@ extern "C" int flash_decode_paged(const void* q, const void* k, const void* v,
   const long long st[16] = {q_sb, q_sh, k_sp, k_ss, k_sh, v_sp, v_ss, v_sh,
                             o_sb, o_sh, 0,    0,    0,    0,    0,    0};
   return dispatch<false>(q, k, v, nullptr, nullptr, lengths, out, dtype, B, Hk, G,
-                         pmax << page_shift, hd, st,
+                         pmax << page_shift, hd, window, st,
                          PagedRows{(const int*)block_tables, pmax, page_shift}, scale,
                          stream);
 }
@@ -382,7 +394,8 @@ extern "C" int flash_decode_paged(const void* q, const void* k, const void* v,
 extern "C" int flash_decode_quant(const void* q, const void* k, const void* ks,
                                   const void* v, const void* vs, const void* lengths,
                                   void* out, int dtype, int B, int Hk, int G, int S,
-                                  int hd, long long q_sb, long long q_sh, long long k_sb,
+                                  int hd, int window, long long q_sb, long long q_sh,
+                                  long long k_sb,
                                   long long k_ss, long long k_sh, long long ks_sb,
                                   long long ks_ss, long long ks_sh, long long v_sb,
                                   long long v_ss, long long v_sh, long long vs_sb,
@@ -390,7 +403,7 @@ extern "C" int flash_decode_quant(const void* q, const void* k, const void* ks,
                                   long long o_sh, float scale, void* stream) {
   const long long st[16] = {q_sb, q_sh, k_sb,  k_ss,  k_sh,  v_sb,  v_ss,  v_sh,
                             o_sb, o_sh, ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh};
-  return dispatch<true>(q, k, v, ks, vs, lengths, out, dtype, B, Hk, G, S, hd, st,
+  return dispatch<true>(q, k, v, ks, vs, lengths, out, dtype, B, Hk, G, S, hd, window, st,
                         SlabRows{}, scale, stream);
 }
 
@@ -400,7 +413,7 @@ extern "C" int flash_decode_quant(const void* q, const void* k, const void* ks,
 extern "C" int flash_decode_paged_quant(
     const void* q, const void* k, const void* ks, const void* v, const void* vs,
     const void* lengths, const void* block_tables, void* out, int dtype, int B, int Hk,
-    int G, int pmax, int page_shift, int hd, long long q_sb, long long q_sh,
+    int G, int pmax, int page_shift, int hd, int window, long long q_sb, long long q_sh,
     long long k_sp, long long k_ss, long long k_sh, long long ks_sp, long long ks_ss,
     long long ks_sh, long long v_sp, long long v_ss, long long v_sh, long long vs_sp,
     long long vs_ss, long long vs_sh, long long o_sb, long long o_sh, float scale,
@@ -409,7 +422,7 @@ extern "C" int flash_decode_paged_quant(
   const long long st[16] = {q_sb, q_sh, k_sp,  k_ss,  k_sh,  v_sp,  v_ss,  v_sh,
                             o_sb, o_sh, ks_sp, ks_ss, ks_sh, vs_sp, vs_ss, vs_sh};
   return dispatch<true>(q, k, v, ks, vs, lengths, out, dtype, B, Hk, G,
-                        pmax << page_shift, hd, st,
+                        pmax << page_shift, hd, window, st,
                         PagedRows{(const int*)block_tables, pmax, page_shift}, scale,
                         stream);
 }

@@ -3,7 +3,9 @@ tensors' device.  Slab caches go to ``flash_prefill``/``flash_decode``,
 the paged arena with its block tables to ``flash_prefill_paged``/
 ``flash_decode_paged``, and an int8 cache (values with per-(position,
 head) scales) to the ``_quant`` entry of each; the Mamba-2 chunked scan
-is ``ssd_scan``; the MoE experts' grouped matmul is ``moe_gmm``.
+is ``ssd_scan``; the MoE experts' grouped matmul is ``moe_gmm``; the
+whole-sequence attention of training and the cold forward, with no
+cache, is ``flash_attention``.
 
 A CUDA tensor launches the hand-written kernel (``csrc/*.cu``, built at
 first use by ``_build``) or raises: there is no fallback to the plain
@@ -26,6 +28,8 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_paged_plain, decode_attention_paged_quant_cuda,
     decode_attention_paged_quant_plain, decode_attention_plain,
     decode_attention_quant_cuda, decode_attention_quant_plain)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.prefill_attention import (
     prefill_attention_cuda, prefill_attention_paged_cuda,
     prefill_attention_paged_plain, prefill_attention_paged_quant_cuda,
@@ -41,7 +45,8 @@ LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "flash_decode": 0,
                             "moe_gmm": 0, "flash_prefill_quant": 0,
                             "flash_prefill_paged_quant": 0,
                             "flash_decode_quant": 0,
-                            "flash_decode_paged_quant": 0}
+                            "flash_decode_paged_quant": 0,
+                            "flash_attention": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
@@ -170,22 +175,23 @@ def flash_prefill(q, k_cache, v_cache, q_offset, lengths, *,
     return out
 
 
-def flash_decode(q, k_cache, v_cache, lengths):
+def flash_decode(q, k_cache, v_cache, lengths, *, window: int = 0):
     """One-token decode. q: [B, 1, H, hd]; caches [B, S_max, Hk, hd];
-    lengths: [B] int32 valid keys incl. the current one -> [B, 1, H, hd]."""
+    lengths: [B] int32 valid keys incl. the current one; ``window`` > 0
+    attends only the last ``window`` of them -> [B, 1, H, hd]."""
     _check_common(q, k_cache, v_cache, [lengths], "flash_decode")
     B = q.shape[0]
     if q.shape[1] != 1 or k_cache.shape[0] != B or lengths.shape[0] != B:
         raise ValueError("flash_decode: q must be [B, 1, H, hd] over a cache "
                          "and lengths of B rows")
     if not q.is_cuda:
-        return decode_attention_plain(q, k_cache, v_cache, lengths)
+        return decode_attention_plain(q, k_cache, v_cache, lengths, window)
     if q.shape[2] // k_cache.shape[2] > MAX_GROUP:
         raise ValueError(f"flash_decode: more than {MAX_GROUP} query heads "
                          f"per KV head")
     if q.stride(3) != 1:
         q = q.contiguous()
-    out = decode_attention_cuda(q, k_cache, v_cache, lengths)
+    out = decode_attention_cuda(q, k_cache, v_cache, lengths, window)
     LAUNCHES["flash_decode"] += 1
     return out
 
@@ -216,10 +222,12 @@ def flash_prefill_paged(q, k_arena, v_arena, q_offset, lengths,
     return out
 
 
-def flash_decode_paged(q, k_arena, v_arena, lengths, block_tables):
+def flash_decode_paged(q, k_arena, v_arena, lengths, block_tables, *,
+                       window: int = 0):
     """One-token decode through block tables. q: [B, 1, H, hd]; arenas
     [P_phys, page, Hk, hd]; lengths: [B] int32 valid keys incl. the
-    current one; block_tables [B, P_max] int32 -> [B, 1, H, hd]."""
+    current one; block_tables [B, P_max] int32; ``window`` as
+    ``flash_decode`` -> [B, 1, H, hd]."""
     _check_common(q, k_arena, v_arena, [lengths], "flash_decode_paged")
     B = q.shape[0]
     if q.shape[1] != 1 or lengths.shape[0] != B:
@@ -228,14 +236,14 @@ def flash_decode_paged(q, k_arena, v_arena, lengths, block_tables):
     _check_tables(block_tables, B, lengths, k_arena, "flash_decode_paged")
     if not q.is_cuda:
         return decode_attention_paged_plain(q, k_arena, v_arena, lengths,
-                                            block_tables)
+                                            block_tables, window)
     if q.shape[2] // k_arena.shape[2] > MAX_GROUP:
         raise ValueError(f"flash_decode_paged: more than {MAX_GROUP} query "
                          f"heads per KV head")
     if q.stride(3) != 1:
         q = q.contiguous()
     out = decode_attention_paged_cuda(q, k_arena, v_arena, lengths,
-                                      block_tables)
+                                      block_tables, window)
     LAUNCHES["flash_decode_paged"] += 1
     return out
 
@@ -295,34 +303,36 @@ def flash_prefill_paged_quant(q, k_q, k_s, v_q, v_s, q_offset, lengths,
     return out
 
 
-def flash_decode_quant(q, k_q, k_s, v_q, v_s, lengths):
+def flash_decode_quant(q, k_q, k_s, v_q, v_s, lengths, *, window: int = 0):
     """One-token decode over an int8 slab cache. q: [B, 1, H, hd];
     k_q/v_q int8 [B, S_max, Hk, hd]; k_s/v_s [B, S_max, Hk, 1] in q's
-    type; lengths: [B] int32 valid keys incl. the current one
-    -> [B, 1, H, hd]."""
+    type; lengths: [B] int32 valid keys incl. the current one; ``window``
+    as ``flash_decode`` -> [B, 1, H, hd]."""
     _check_common(q, k_q, v_q, [lengths], "flash_decode_quant", k_s, v_s)
     B = q.shape[0]
     if q.shape[1] != 1 or k_q.shape[0] != B or lengths.shape[0] != B:
         raise ValueError("flash_decode_quant: q must be [B, 1, H, hd] over a "
                          "cache and lengths of B rows")
     if not q.is_cuda:
-        return decode_attention_quant_plain(q, k_q, k_s, v_q, v_s, lengths)
+        return decode_attention_quant_plain(q, k_q, k_s, v_q, v_s, lengths,
+                                            window)
     if q.shape[2] // k_q.shape[2] > MAX_GROUP:
         raise ValueError(f"flash_decode_quant: more than {MAX_GROUP} query "
                          f"heads per KV head")
     if q.stride(3) != 1:
         q = q.contiguous()
-    out = decode_attention_quant_cuda(q, k_q, k_s, v_q, v_s, lengths)
+    out = decode_attention_quant_cuda(q, k_q, k_s, v_q, v_s, lengths, window)
     LAUNCHES["flash_decode_quant"] += 1
     return out
 
 
-def flash_decode_paged_quant(q, k_q, k_s, v_q, v_s, lengths, block_tables):
+def flash_decode_paged_quant(q, k_q, k_s, v_q, v_s, lengths, block_tables,
+                             *, window: int = 0):
     """One-token decode through block tables over int8 arenas. q: [B, 1,
     H, hd]; k_q/v_q int8 [P_phys, page, Hk, hd]; k_s/v_s
     [P_phys, page, Hk, 1] in q's type; lengths: [B] int32 valid keys
-    incl. the current one; block_tables [B, P_max] int32
-    -> [B, 1, H, hd]."""
+    incl. the current one; block_tables [B, P_max] int32; ``window`` as
+    ``flash_decode`` -> [B, 1, H, hd]."""
     _check_common(q, k_q, v_q, [lengths], "flash_decode_paged_quant", k_s,
                   v_s)
     B = q.shape[0]
@@ -332,14 +342,15 @@ def flash_decode_paged_quant(q, k_q, k_s, v_q, v_s, lengths, block_tables):
     _check_tables(block_tables, B, lengths, k_q, "flash_decode_paged_quant")
     if not q.is_cuda:
         return decode_attention_paged_quant_plain(q, k_q, k_s, v_q, v_s,
-                                                  lengths, block_tables)
+                                                  lengths, block_tables,
+                                                  window)
     if q.shape[2] // k_q.shape[2] > MAX_GROUP:
         raise ValueError(f"flash_decode_paged_quant: more than {MAX_GROUP} "
                          f"query heads per KV head")
     if q.stride(3) != 1:
         q = q.contiguous()
     out = decode_attention_paged_quant_cuda(q, k_q, k_s, v_q, v_s, lengths,
-                                            block_tables)
+                                            block_tables, window)
     LAUNCHES["flash_decode_paged_quant"] += 1
     return out
 
@@ -419,4 +430,50 @@ def moe_gmm(x, w):
         return torch.zeros((E, C, f), dtype=x.dtype, device=x.device)
     out = gmm_cuda(x, w)
     LAUNCHES["moe_gmm"] += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Whole-sequence attention with no cache. q: [B, Sq, H, hd]; k/v:
+    [B, Sk, Hk, hd] of q's type; ``window`` > 0 (causal only) limits a row
+    to its last ``window`` keys.  Returns (o [B, Sq, H, hd] in q's type,
+    m, l [B, H, Sq] f32: each row's max scaled score and softmax sum).
+    The kernel masks ragged Sq and Sk itself; nothing is padded."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q must be [B, Sq, H, hd] and k/v "
+                         f"[B, Sk, Hk, hd] of one shape; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or Hk == 0 or H % Hk:
+        raise ValueError(f"flash_attention: shapes disagree (q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)})")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: q/k/v must share one of "
+                        f"{_DTYPES}; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError("flash_attention: tensors on several devices")
+    if window < 0:
+        raise ValueError(f"flash_attention: window must be >= 0, got {window}")
+    if Sk == 0:
+        raise ValueError("flash_attention: no keys")
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention: the CUDA kernel takes hd in "
+                         f"{_HEAD_DIMS}, got {hd}")
+    vec = 16 // k.element_size()            # the kernel's 16-byte loads
+    for t in (k, v):
+        if (t.stride(3) != 1 or t.data_ptr() % 16
+                or any(st % vec for st in t.stride()[:3])):
+            raise ValueError("flash_attention: k/v rows need a unit stride "
+                             "on hd and 16-byte alignment")
+    if B == 0 or Sq == 0:
+        stats = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        return torch.empty_like(q), stats, stats.clone()
+    if q.stride(3) != 1:
+        q = q.contiguous()
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    LAUNCHES["flash_attention"] += 1
     return out

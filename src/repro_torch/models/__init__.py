@@ -1,7 +1,8 @@
 """Decoder models of the port (dense, Mamba-2 and hybrid stacks; the JAX
-package's model layout)."""
+package's model layout), with the dense training forwards."""
 from repro_torch.models.model import (  # noqa: F401
     POSITIONAL_CACHE_KEYS, forward_decode, forward_decode_fused,
-    forward_decode_megastep, forward_prefill, forward_resume_batch,
+    forward_cold, forward_decode_megastep, forward_prefill,
+    forward_resume_batch, forward_train,
     from_jax_params, group_layout, init_cache, init_params, num_kv_pages,
     param_shapes)

@@ -11,8 +11,15 @@ and ``decode_attention_paged`` read the page arena through block tables.
 An int8 cache (``quantize_kv``: int8 values with per-(position, head)
 scales) goes to ``prefill_attention_quant``,
 ``prefill_attention_paged_quant``, and the decode dispatchers given
-``k_scale``/``v_scale``.  Sliding-window decode has no CUDA kernel: it
-runs on CPU tensors and raises on CUDA tensors instead of falling back.
+``k_scale``/``v_scale``.  Sliding-window decode runs in the decode
+kernels on CUDA tensors (they start at ``max(0, len - window)``); on CPU
+tensors it keeps the JAX package's slice-then-blocked path.
+
+``train_attention`` is the attention of the training and cold forwards
+(no cache): the ``FlashAttention`` autograd Function, whose forward is
+``ops.flash_attention`` (kernel 9 on CUDA tensors) and whose backward is
+a PyTorch port of the JAX package's custom-VJP backward (``_flash_bwd``,
+XLA there, matmuls here: no TPU kernel to port).
 """
 from __future__ import annotations
 
@@ -22,6 +29,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import paged_gather
 
 NEG_INF = -1e30
+# keys per block of the FlashAttention backward, the JAX package's
+# blocked_attention default
+_BWD_BLOCK = 512
 
 
 def _blocked(q, k, v, k_scale, v_scale, q_offset, lengths, causal: bool,
@@ -77,6 +87,79 @@ def blocked_attention(q, k, v, *, q_offset=None, lengths=None,
                     block_size)
 
 
+def _flash_bwd(q, k, v, o, m, l, do, causal: bool, window: int):
+    """The FlashAttention backward of the JAX package (``_flash_bwd``):
+    from the saved q, k, v, o and the forward's row statistics m, l
+    [B, H, Sq], ``D = sum(dO * O)``, then per key block the masked
+    probabilities ``exp(s - m) / l`` and dv, dq, dk, all in f32.  The
+    scores take q as the forward kernel does (cast to f32, then scaled),
+    so m and l fit them in every type.  Returns (dq, dk, dv) in the input
+    types."""
+    B, Sq, H, hd = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    G = H // Hk
+    scale = 1.0 / hd ** 0.5
+    dev = q.device
+    qg = q.float().reshape(B, Sq, Hk, G, hd) * scale
+    dog = do.float().reshape(B, Sq, Hk, G, hd).permute(0, 2, 3, 1, 4)
+    og = o.float().reshape(B, Sq, Hk, G, hd).permute(0, 2, 3, 1, 4)
+    m = m.reshape(B, Hk, G, Sq)
+    l_safe = torch.clamp(l.reshape(B, Hk, G, Sq), min=1e-30)
+    D = (dog * og).sum(dim=-1)                                    # [B,Hk,G,Sq]
+    q_pos = torch.arange(Sq, device=dev)[:, None]
+    dq = torch.zeros((B, Sq, Hk, G, hd), dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for start in range(0, Sk, _BWD_BLOCK):
+        k_blk = k[:, start:start + _BWD_BLOCK].float()
+        v_blk = v[:, start:start + _BWD_BLOCK].float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_blk)
+        if causal:
+            k_pos = torch.arange(start, start + k_blk.shape[1],
+                                 device=dev)[None]
+            valid = k_pos <= q_pos
+            if window > 0:
+                valid = valid & (k_pos > q_pos - window)
+            s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        p = torch.exp(s - m[..., None]) / l_safe[..., None]   # [B,Hk,G,Sq,k]
+        dvs.append(torch.einsum("bhgqk,bhgqd->bkhd", p, dog))
+        dp = torch.einsum("bhgqd,bkhd->bhgqk", dog, v_blk)
+        ds = p * (dp - D[..., None])
+        dq += torch.einsum("bhgqk,bkhd->bqhgd", ds, k_blk)
+        dks.append(torch.einsum("bhgqk,bqhgd->bkhd", ds, qg))
+    dq = (dq * scale).reshape(B, Sq, H, hd).to(q.dtype)
+    # dk needs no extra scale: qg already carries 1/sqrt(hd)
+    return dq, torch.cat(dks, 1).to(k.dtype), torch.cat(dvs, 1).to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a FlashAttention backward, the JAX package's
+    ``_flash`` custom VJP: the forward (``ops.flash_attention``: kernel 9
+    on CUDA tensors, its plain version on CPU tensors) saves q, k, v, o
+    and the row statistics m, l; the backward (``_flash_bwd``) re-derives
+    each key block's probabilities from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        o, m, l = ops.flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, m, l)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, m, l = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, o, m, l, do, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
+def train_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Whole-sequence attention of the training and cold forwards (the
+    JAX mixer's "train" mode: ``blocked_attention`` with no offsets or
+    lengths). q: [B, S, H, hd]; k/v: [B, S, Hk, hd] -> [B, S, H, hd],
+    differentiable through ``FlashAttention``."""
+    return FlashAttention.apply(q, k, v, causal, window)
+
+
 def blocked_attention_quant(q, k_q, k_s, v_q, v_s, *, q_offset=None,
                             lengths=None, causal: bool = True,
                             window: int = 0, block_size: int = 512):
@@ -125,15 +208,13 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
     caches [B, S, Hk, hd]; lengths [B] valid keys incl. the current one.
     ``k_scale``/``v_scale`` [B, S, Hk, 1]: the cache is int8.
 
-    With ``window > 0`` only the last ``window`` cache entries are read
-    (per-row slice, then the blocked plain path) — on CPU tensors only:
-    the windowed decode kernel is not ported."""
+    With ``window > 0`` only the last ``window`` cache entries are read:
+    on CUDA tensors the decode kernels start at ``max(0, len - window)``;
+    on CPU tensors a per-row slice feeds the blocked plain path, as in
+    the JAX package."""
     S = k_cache.shape[1]
     quant = k_scale is not None
-    if window > 0 and window < S:
-        if q.is_cuda:
-            raise NotImplementedError(
-                "sliding-window decode has no CUDA kernel yet")
+    if 0 < window < S and not q.is_cuda:
         B = q.shape[0]
         starts = torch.clamp(lengths.long() - window, min=0)
         idx = starts[:, None] + torch.arange(window, device=q.device)[None, :]
@@ -149,8 +230,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
                                  **kw)
     if quant:
         return ops.flash_decode_quant(q, k_cache, k_scale, v_cache, v_scale,
-                                      lengths.int())
-    return ops.flash_decode(q, k_cache, v_cache, lengths.int())
+                                      lengths.int(), window=window)
+    return ops.flash_decode(q, k_cache, v_cache, lengths.int(), window=window)
 
 
 def prefill_attention_paged(q, k_arena, v_arena, block_tables, *, q_offset,
@@ -182,13 +263,12 @@ def decode_attention_paged(q, k_arena, v_arena, block_tables, lengths, *,
     """Paged single-token decode. q: [B, 1, H, hd]; arenas
     [P_phys, page, Hk, hd]; block_tables [B, P_max]; lengths [B] valid
     keys incl. the current one; ``k_scale``/``v_scale`` scale arenas
-    [P_phys, page, Hk, 1]: the arenas are int8.  With ``window > 0`` (CPU
-    tensors only, like the slab path) the pages are gathered and the slab
-    windowed path runs on the linear view, which keeps every position."""
-    if window > 0 and window < block_tables.shape[1] * k_arena.shape[1]:
-        if q.is_cuda:
-            raise NotImplementedError(
-                "sliding-window decode has no CUDA kernel yet")
+    [P_phys, page, Hk, 1]: the arenas are int8.  With ``window > 0`` the
+    kernels read only the window's pages on CUDA tensors; on CPU tensors
+    the pages are gathered and the slab windowed path runs on the linear
+    view, which keeps every position."""
+    if 0 < window < block_tables.shape[1] * k_arena.shape[1] \
+            and not q.is_cuda:
         scales = {}
         if k_scale is not None:
             scales = dict(k_scale=paged_gather(k_scale, block_tables),
@@ -200,6 +280,6 @@ def decode_attention_paged(q, k_arena, v_arena, block_tables, lengths, *,
     if k_scale is not None:
         return ops.flash_decode_paged_quant(q, k_arena, k_scale, v_arena,
                                             v_scale, lengths.int(),
-                                            block_tables.int())
+                                            block_tables.int(), window=window)
     return ops.flash_decode_paged(q, k_arena, v_arena, lengths.int(),
-                                  block_tables.int())
+                                  block_tables.int(), window=window)

@@ -1,5 +1,5 @@
 """Layer slots (attention or Mamba-2 mixer; MLP, MoE or no FFN) in prefill
-and decode modes.
+and decode modes, and (attention + MLP) in the differentiable train mode.
 
 A *layer slot* is described statically by ``LayerSpec``, as in the JAX
 package; ``models.model`` stacks identical slots across repeating groups.
@@ -29,7 +29,8 @@ from repro_torch.models.attention import (blocked_attention, decode_attention,
                                           prefill_attention,
                                           prefill_attention_paged,
                                           prefill_attention_paged_quant,
-                                          prefill_attention_quant, quantize_kv)
+                                          prefill_attention_quant, quantize_kv,
+                                          train_attention)
 from repro_torch.models.common import rms_norm
 from repro_torch.models.mlp import apply_mlp
 from repro_torch.models.moe import moe_output
@@ -188,13 +189,18 @@ def apply_attn_mixer(p, x, cfg: ModelConfig, *, mode: str, positions,
     rows land (``paged_write_index``, write positions already applied).
     An int8 cache (``"ks" in layer_cache``) is quantised on write and
     read through the int8 dispatchers; the cache decides, as in JAX.
+    ``mode="train"``: causal attention over the rows themselves, no cache,
+    differentiable (``train_attention``: kernel 9 on CUDA tensors).
     Writes ``layer_cache`` in place and returns the mixer output."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     q, k = _rope(cfg, q, k, positions)
     # an int8 cache carries its scales beside the values
     quant = layer_cache is not None and "ks" in layer_cache
-    if mode == "prefill" and layer_cache is None:
+    if mode == "train":
+        assert layer_cache is None
+        out = train_attention(q, k, v, causal=True, window=window)
+    elif mode == "prefill" and layer_cache is None:
         out = blocked_attention(q, k, v, causal=True, window=window)
     elif mode == "prefill" and block_tables is not None:
         assert slot_idx is None

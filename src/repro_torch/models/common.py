@@ -1,4 +1,5 @@
-"""Shared model primitives: init helpers and the RMS norm."""
+"""Shared model primitives: init helpers, the RMS norm and sizes of
+parameter trees (nested dicts, lists or tuples of tensors)."""
 from __future__ import annotations
 
 import torch
@@ -22,3 +23,21 @@ def rms_norm(x, weight, eps: float = 1e-5):
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * weight.float()).to(dt)
+
+
+def tree_leaves(tree):
+    """The tensors of a nested dict / list / tuple, dict keys in sorted
+    order (the JAX package's pytree order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def tree_size_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def count_params(tree) -> int:
+    return sum(x.numel() for x in tree_leaves(tree))

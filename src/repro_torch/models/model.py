@@ -28,6 +28,8 @@ Public entry points:
                                     device-resident (no host sync)
   forward_decode_megastep         — K fused decode steps
   forward_resume_batch            — M resume prefills packed in one call
+  forward_train / forward_cold    — whole sequences with no cache,
+                                    differentiable (dense decoders)
 
 Every forward takes ``block_tables`` [B, P_max] int32 for the paged
 layout (None: slab), and ``moe_mode`` for the MoE slots (the JAX
@@ -35,11 +37,13 @@ default: "gmm").
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba2
@@ -297,6 +301,73 @@ def _logits(params, cfg: ModelConfig, h):
     if cfg.padded_vocab != cfg.vocab_size:
         logits = logits[..., : cfg.vocab_size]
     return logits
+
+
+def _check_trainable(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.mrope or cfg.encoder_only:
+        raise NotImplementedError(
+            f"{cfg.name}: forward_train/forward_cold run dense decoders only "
+            f"(family {cfg.family!r}); MoE and Mamba-2 training (kernels 7 "
+            f"and 8 have no gradient yet), encoders and M-RoPE are ROADMAP "
+            f"item 12b")
+
+
+def _train_layers(params, x, cfg: ModelConfig, *, positions, window: int,
+                  remat: bool):
+    """Every layer in train mode; ``remat`` recomputes each layer's
+    activations in the backward (``torch.utils.checkpoint``), which only
+    changes memory, as the JAX package's per-layer and per-group remat."""
+    G, _, specs = group_layout(cfg)
+    for g in range(G):
+        for j, spec in enumerate(specs):
+            fn = functools.partial(apply_layer, cfg=cfg, spec=spec,
+                                   mode="train", positions=positions,
+                                   lengths=None, layer_cache=None,
+                                   window=window)
+            lp = _layer_params(params["groups"][f"l{j}"], g)
+            x = (checkpoint(fn, lp, x, use_reentrant=False) if remat
+                 else fn(lp, x))
+    return x
+
+
+def _train_hidden(params, cfg: ModelConfig, tokens, embeds, positions,
+                  remat: bool, window_override: Optional[int]):
+    _check_trainable(cfg)
+    x = embeds if embeds is not None else params["embed"][tokens]
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    window = (cfg.sliding_window if window_override is None
+              else window_override)
+    return _train_layers(params, x, cfg, positions=positions, window=window,
+                         remat=remat)
+
+
+def forward_train(params, cfg: ModelConfig, tokens=None, *, embeds=None,
+                  positions=None, remat: bool = False,
+                  window_override: Optional[int] = None,
+                  return_hidden: bool = False):
+    """Full causal forward producing logits for every position, with no
+    cache: tokens [B, S] (or ``embeds`` [B, S, d]) -> (logits [B, S,
+    vocab], aux), or (hidden [B, S, d], aux) with ``return_hidden``.
+    ``aux`` is the MoE load-balance loss of the JAX package, 0 here
+    (dense only).  Differentiable: attention goes through
+    ``FlashAttention`` (kernel 9 on the card)."""
+    h = _train_hidden(params, cfg, tokens, embeds, positions, remat,
+                      window_override)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if return_hidden:
+        return h, aux
+    return _logits(params, cfg, h), aux
+
+
+def forward_cold(params, cfg: ModelConfig, tokens=None, *, embeds=None,
+                 remat: bool = False, window_override: Optional[int] = None):
+    """Cold prefill with no cache: the causal forward of ``forward_train``
+    returning only the last position's logits [B, vocab]."""
+    h = _train_hidden(params, cfg, tokens, embeds, None, remat,
+                      window_override)
+    return _logits(params, cfg, h[:, -1])
 
 
 def forward_prefill(params, cfg: ModelConfig, tokens, cache, lengths, *,

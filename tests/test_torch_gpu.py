@@ -374,3 +374,148 @@ def test_cuda_quant_wrappers_reject_what_they_do_not_take(cuda):
     torch.cuda.synchronize()
     assert out.shape == q.shape
     assert ops.LAUNCHES["flash_decode_quant"] == before + 1
+
+
+# ---------------------------------------------------------------------------
+# whole-sequence flash attention (kernel 9) and its autograd Function
+# ---------------------------------------------------------------------------
+
+# (causal, window, Sq, Sk): ragged lengths that are no multiple of a tile
+FLASH_CASES = [(True, 0, 1000, 1000), (True, 256, 1000, 1000),
+               (False, 0, 700, 1000), (True, 0, 333, 1000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hk,hd", HEADS)
+def test_cuda_flash_attention_matches_plain(cuda, dtype, H, Hk, hd):
+    """Kernel 9 against its plain version: causal, windowed, non-causal
+    and Sq < Sk; the output and the row statistics m (1e-4) and l (1e-4
+    relative), which the backward reads."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    tol, dt = TOL[dtype], getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(H + hd + 5)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    for causal, window, Sq, Sk in FLASH_CASES:
+        q, k, v = rnd(2, Sq, H, hd), rnd(2, Sk, Hk, hd), rnd(2, Sk, Hk, hd)
+        before = ops.LAUNCHES["flash_attention"]
+        o, m, l = ops.flash_attention(q, k, v, causal=causal, window=window)
+        assert ops.LAUNCHES["flash_attention"] == before + 1
+        po, pm, pl = flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)
+        torch.cuda.synchronize()
+        assert o.dtype == dt and m.dtype == l.dtype == torch.float32
+        assert _err(o, po) <= tol, (causal, window, _err(o, po))
+        assert _err(m, pm) <= 1e-4
+        assert ((l - pl).abs() / pl).max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,Hk,hd", [(15, 5, 64), (16, 2, 128)])
+@pytest.mark.parametrize("window", [0, 64])
+def test_cuda_flash_attention_grads_match_plain(cuda, H, Hk, hd, window):
+    """The Function's dq, dk, dv on the card (kernel 9 forward, matmul
+    backward) against autograd through the plain version, f32, 1e-4."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.attention import train_attention
+    gen = torch.Generator(device="cuda").manual_seed(hd + window)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    q, k, v, do = mk(2, 300, H, hd), mk(2, 300, Hk, hd), mk(2, 300, Hk, hd), \
+        mk(2, 300, H, hd)
+    got, want = [], []
+    for fn, out in ((lambda *a: train_attention(*a, window=window), got),
+                    (lambda *a: flash_attention_plain(
+                        *a, window=window)[0], want)):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        fn(*leaves).backward(do)
+        out.extend(x.grad for x in leaves)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _err(a, b) <= 1e-4, _err(a, b)
+
+
+# ---------------------------------------------------------------------------
+# sliding-window decode (the four decode entries)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [64, 1024])
+@pytest.mark.parametrize("H,Hk,hd", HEADS)
+def test_cuda_window_decode_matches_plain(cuda, dtype, window, H, Hk, hd):
+    """Each decode entry with a window against its plain version: lengths
+    1, below, at and above the window, slab and paged (page 64, shuffled
+    tables with shared pages), bf16 values and int8 ones."""
+    tol, dt = TOL[dtype], getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(H + hd + window)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    rng = np.random.default_rng(window + hd)
+    page, S = 64, 2048
+    lens = [1, window - 1, window, window + 1, 2000, 3 * window // 2 + 5]
+    B, pmax = len(lens), S // page
+    P = B * pmax
+    L, q = _i32(lens), rnd(B, 1, H, hd)
+    kc, vc = rnd(B, S, Hk, hd), rnd(B, S, Hk, hd)
+    assert _err(ops.flash_decode(q, kc, vc, L, window=window),
+                decode_attention_plain(q, kc, vc, L, window)) <= tol
+    kq, ks = quantize_kv(kc)
+    vq, vs = quantize_kv(vc)
+    assert _err(ops.flash_decode_quant(q, kq, ks, vq, vs, L, window=window),
+                decode_attention_quant_plain(q, kq, ks, vq, vs, L,
+                                             window)) <= tol
+    ka, va = rnd(P + 1, page, Hk, hd), rnd(P + 1, page, Hk, hd)
+    bt = torch.tensor(shared_tables(rng, lens, pmax, page, P), device="cuda")
+    assert _err(ops.flash_decode_paged(q, ka, va, L, bt, window=window),
+                decode_attention_paged_plain(q, ka, va, L, bt,
+                                             window)) <= tol
+    kaq, kas = quantize_kv(ka)
+    vaq, vas = quantize_kv(va)
+    assert _err(ops.flash_decode_paged_quant(q, kaq, kas, vaq, vas, L, bt,
+                                             window=window),
+                decode_attention_paged_quant_plain(q, kaq, kas, vaq, vas, L,
+                                                   bt, window)) <= tol
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_cuda_mixtral_smoke_window_decode_equals_cpu(cuda, paged):
+    """The mixtral-8x22b smoke config (window 64) in f32: a 100-token
+    prompt, then a 24-step decode megastep on the card and on the CPU
+    from the same weights: equal tokens."""
+    import dataclasses
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import (forward_decode_megastep, forward_prefill,
+                                    init_cache, init_params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("mixtral-8x22b"),
+                              kv_layout="paged" if paged else "slab",
+                              kv_page_size=16)
+    assert cfg.sliding_window == 64
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32))
+    runs = []
+    for dev in ("cuda", "cpu"):
+        p = _to(params, dev)
+        cache = init_cache(cfg, 2, 256, device=dev)
+        i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)
+        kw = {}
+        if paged:
+            kw["block_tables"] = torch.arange(
+                2 * 16, dtype=torch.int32, device=dev).reshape(2, 16)
+        logits, cache, lens = forward_prefill(p, cfg, toks.to(dev), cache,
+                                              i32(0, 0), **kw)
+        first = logits.argmax(-1).int()
+        seq, _, _, _ = forward_decode_megastep(
+            p, cfg, first, cache, lens, torch.ones(2, dtype=torch.bool,
+                                                   device=dev),
+            num_steps=24, **kw)
+        runs.append(seq.cpu())
+    assert torch.equal(runs[0], runs[1])
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
