@@ -8,15 +8,20 @@ failure:
 1. device  — the card's name, count and power limit; fails without CUDA.
 2. build   — compiles every CUDA kernel from ``src/repro_torch/kernels/
              csrc`` (one nvcc per source, in parallel) and prints
-             ptxas's register / shared-memory / spill lines.
+             ptxas's register / shared-memory / spill lines, and the
+             count of tensor-core (HGMMA) instructions in each built
+             library's SASS (``cuobjdump -sass``; > 0 for
+             prefill_attention).
 3. parity  — each kernel against its plain PyTorch version at the main
              path's shapes (Qwen2.5-3B heads 16/2/128, SmolLM-360M heads
-             15/5/64 and OLMoE-1B-7B heads 16/16/128, S_max 8192, ragged lengths to 8000, prefill
-             chunks at offsets 0 and > 0; slab: a strided cache view;
-             paged: page 64, shuffled tables in which two rows share
-             pages), f32 within 1e-4 and bf16 within 2e-2 max abs error.
-             The paged kernels are also held against the slab kernels on
-             the same logical rows (0 where the tile order is the same).
+             15/5/64 and OLMoE-1B-7B heads 16/16/128, S_max 8192, ragged
+             lengths to 8000, prefill chunks of 1 to 320 tokens at
+             offsets 0 and > 0; slab: a strided cache view; paged: page
+             64, shuffled tables in which two rows share pages), f32
+             within 1e-4 and bf16 within 2e-2 max abs error; the bf16
+             prefill's split merge against its plain form.  The paged
+             kernels are also held against the slab kernels on the same
+             logical rows.
 4. timing  — each kernel, its plain version and one library call
              (``scaled_dot_product_attention`` with the equivalent
              boolean mask on the valid slice, already gathered for the
@@ -24,7 +29,8 @@ failure:
              launches, beside the bound max(flops / 989e12,
              bytes / 3.35e12) computed from these inputs (keys each row
              needs, every input byte read once, block-table entries
-             included).
+             included); the prefill entries also at the resume batch's
+             shape (4 x 64 tokens).
 5. identity — float32 full-width Qwen2.5-3B cut to 4 layers, served by
              the engine on a 3-agent react workload on the slab layout;
              every session's stream must equal the port's isolated
@@ -259,6 +265,16 @@ def phase_build():
                 log(f"[build] {n}: {line.strip()}")
     for n in names:
         _build.load(n)
+    # tensor-core instructions in each built library's SASS
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    hgmma = {}
+    for n in names:
+        sass = subprocess.run([cuobjdump, "-sass", str(_build._target(n))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        hgmma[n] = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"[build] HGMMA instructions in SASS: {hgmma}")
+    assert hgmma["prefill_attention"] > 0, hgmma
 
 
 def _rand(gen, shape, dtype):
@@ -276,6 +292,8 @@ def _max_err(a, b):
 # Qwen2.5-3B, SmolLM-360M and OLMoE-1B-7B heads (H, Hk, hd): query
 # groups 8, 3 and 1
 PARITY_HEADS = ((16, 2, 128), (15, 5, 64), (16, 16, 128))
+# prefill chunk lengths: spec-verify blocks (1..8), resumes, cold chunks
+PARITY_SQ = (1, 2, 8, 16, 56, 160, 320)
 
 
 def phase_parity():
@@ -305,7 +323,7 @@ def phase_parity():
                     f"lens={lens} max_abs_err={err:.3e}")
                 assert err <= TOL[dtype], ("flash_decode", err)
                 worst["flash_decode"] = max(worst["flash_decode"], err)
-                for Sq in (16, 56, 160, 320):
+                for Sq in PARITY_SQ:
                     for off in (0, 3000):
                         M = 3
                         qo = _i32([off, off + 17, off // 2])
@@ -323,6 +341,37 @@ def phase_parity():
                         assert err <= TOL[dtype], ("flash_prefill", err)
                         worst["flash_prefill"] = max(worst["flash_prefill"],
                                                      err)
+    worst["flash_prefill"] = max(worst["flash_prefill"], parity_merge())
+    return worst
+
+
+def parity_merge():
+    """The bf16 entries' split merge kernel against its plain form on
+    partial states of 7 splits, some empty (m = -1e30, l = 0)."""
+    from repro_torch.kernels.prefill_attention import (merge_partials_cuda,
+                                                       merge_partials_plain)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+    for hd in (64, 128):
+        splits, M, Sq, H = 7, 3, 160, 16
+        part_o = torch.randn(splits, M, Sq, H, hd, generator=gen,
+                             device="cuda")
+        m = 8 * torch.randn(splits, M, Sq, H, generator=gen, device="cuda")
+        l = 1 + torch.rand(splits, M, Sq, H, generator=gen, device="cuda")
+        empty = torch.rand(splits, M, Sq, H, generator=gen,
+                           device="cuda") < 0.3
+        empty[0] = False
+        part_o[empty] = 0
+        part_ml = torch.stack([m.masked_fill(empty, -1e30),
+                               l.masked_fill(empty, 0)], dim=-1)
+        for dtype in (torch.bfloat16, torch.float32):
+            err = _max_err(merge_partials_cuda(part_o, part_ml, dtype),
+                           merge_partials_plain(part_o, part_ml, dtype))
+            torch.cuda.synchronize()
+            log(f"[parity] prefill merge hd={hd} splits={splits} "
+                f"{str(dtype)[6:]} max_abs_err={err:.3e}")
+            assert err <= TOL[dtype], ("prefill merge", err)
+            worst = max(worst, err)
     return worst
 
 
@@ -375,7 +424,7 @@ def phase_parity_paged():
             worst["flash_decode_paged"] = max(worst["flash_decode_paged"], err)
             rows = _i32([5, 0, 3])
             bt_m = bt[rows.long()].contiguous()
-            for Sq in (16, 56, 160, 320):
+            for Sq in PARITY_SQ:
                 for off in (0, 3000):
                     qo = _i32([off, off + 17, off // 2])
                     ln = qo + Sq
@@ -407,6 +456,28 @@ def _time_ms(fn, iters=50, warmup=5):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters=40):
+    """Device time per call of every kernel fn launches (torch.profiler):
+    the kernels' own time, where _time_ms also sees the host's launch
+    rate."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) or 0 for e in prof.key_averages()) / iters / 1e3
+
+
+def _log_timing(name, r):
+    dev = (f" device_ms={r['device_ms']:.4f}" if "device_ms" in r else "")
+    log(f"[timing] {name} {r['shape']}: kernel_ms={r['ms']:.4f}{dev} "
+        f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+        f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
 
 
 def _bound_ms(flops, nbytes, dtype):
@@ -473,28 +544,67 @@ def phase_timing():
     res["flash_prefill"] = dict(
         ms=_time_ms(lambda: ops.flash_prefill(qq, kc, vc, qo, ln,
                                               slot_idx=si)),
+        device_ms=_device_ms(lambda: ops.flash_prefill(qq, kc, vc, qo, ln,
+                                                       slot_idx=si)),
         plain_ms=_time_ms(lambda: prefill_attention_plain(
             qq, kc, vc, qo, ln, slot_idx=si)),
         library_ms=_time_ms(lib), bound_ms=bound, bound_by=by,
         shape=f"M={M} Sq={Sq} offset={off} H/Hk/hd={H}/{Hk}/{hd} G={G} bf16")
     for name, r in res.items():
-        log(f"[timing] {name} {r['shape']}: kernel_ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+        _log_timing(name, r)
 
     # resume-batch shape of the slice: 4 rows of 64 tokens deep in context
     M, Sq = 4, 64
     qq = _rand(gen, (M, Sq, H, hd), dtype)
-    offs = [3100, 3600, 4200, 2900]
-    qo, ln, si = _i32(offs), _i32([o + Sq for o in offs]), _i32([0, 1, 2, 3])
-    ms = _time_ms(lambda: ops.flash_prefill(qq, kc, vc, qo, ln, slot_idx=si))
-    pairs = sum(o + i + 1 for o in offs for i in range(Sq))
-    bound, by = _bound_ms(4 * pairs * H * hd,
-                          (2 * sum(o + Sq for o in offs) * Hk * hd
-                           + 2 * M * Sq * H * hd) * es, dtype)
-    log(f"[timing] flash_prefill resume M=4 Sq=64 offsets={offs}: "
-        f"kernel_ms={ms:.4f} bound_ms={bound:.5f} ({by})")
+    qo, ln, si = _i32(RESUME_OFFS), _i32([o + Sq for o in RESUME_OFFS]), \
+        _i32([0, 1, 2, 3])
+    lib = resume_sdpa(qq, kc[:M], vc[:M])
+    r = dict(ms=_time_ms(lambda: ops.flash_prefill(qq, kc, vc, qo, ln,
+                                                   slot_idx=si)),
+             device_ms=_device_ms(lambda: ops.flash_prefill(
+                 qq, kc, vc, qo, ln, slot_idx=si)),
+             plain_ms=_time_ms(lambda: prefill_attention_plain(
+                 qq, kc, vc, qo, ln, slot_idx=si)),
+             library_ms=_time_ms(lib), shape=f"resume M={M} Sq={Sq} "
+             f"offsets={RESUME_OFFS} H/Hk/hd={H}/{Hk}/{hd} G={G} bf16")
+    r["bound_ms"], r["bound_by"] = resume_bound(H, Hk, hd, es, 12 * M)
+    res["flash_prefill@resume"] = r
+    _log_timing("flash_prefill@resume", r)
     return res
+
+
+# the resume batch's rows: 4 x 64 tokens deep in context
+RESUME_OFFS = [3100, 3600, 4200, 2900]
+
+
+def resume_sdpa(qq, kc, vc):
+    """One SDPA call on the resume batch: q [M, Sq, H, hd] against cache
+    rows kc/vc [M, >= L, Hk, hd] (row m's, already gathered), each row
+    masked to its own causal keys."""
+    import torch.nn.functional as F
+    M, Sq = qq.shape[:2]
+    Lk = max(RESUME_OFFS) + Sq
+    kt = kc[:, :Lk].transpose(1, 2)
+    vt = vc[:, :Lk].transpose(1, 2)
+    q_pos = (torch.tensor(RESUME_OFFS, device="cuda")[:, None]
+             + torch.arange(Sq, device="cuda")[None, :])          # [M, Sq]
+    mask = (torch.arange(Lk, device="cuda")[None, None, :]
+            <= q_pos[:, :, None])[:, None]                      # [M,1,Sq,Lk]
+    qt = qq.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def resume_bound(H, Hk, hd, es, extra_bytes):
+    """The resume batch's bound: its causal (query, key) pairs, each
+    row's keys read once, q and the output once, plus ``extra_bytes``
+    (index words, table entries)."""
+    Sq, M = 64, len(RESUME_OFFS)
+    pairs = sum(o + i + 1 for o in RESUME_OFFS for i in range(Sq))
+    keys = sum(o + Sq for o in RESUME_OFFS)
+    return _bound_ms(4 * pairs * H * hd,
+                     (2 * keys * Hk * hd + 2 * M * Sq * H * hd) * es
+                     + extra_bytes, torch.bfloat16)
 
 
 def phase_timing_paged():
@@ -561,29 +671,36 @@ def phase_timing_paged():
                           + 4 * -(-Lk // PAGE), dtype)
     res["flash_prefill_paged"] = dict(
         ms=_time_ms(lambda: ops.flash_prefill_paged(qq, ka, va, qo, ln, bt_1)),
+        device_ms=_device_ms(lambda: ops.flash_prefill_paged(qq, ka, va, qo,
+                                                             ln, bt_1)),
         plain_ms=_time_ms(lambda: prefill_attention_paged_plain(
             qq, ka, va, qo, ln, bt_1)),
         library_ms=_time_ms(lib), bound_ms=bound, bound_by=by,
         shape=f"M=1 Sq={Sq} offset={off} H/Hk/hd={H}/{Hk}/{hd} G={G} "
               f"page={PAGE} bf16")
     for name, r in res.items():
-        log(f"[timing] {name} {r['shape']}: kernel_ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+        _log_timing(name, r)
 
     M, Sq = 4, 64
     qq = _rand(gen, (M, Sq, H, hd), dtype)
-    offs = [3100, 3600, 4200, 2900]
-    qo, ln = _i32(offs), _i32([o + Sq for o in offs])
+    qo, ln = _i32(RESUME_OFFS), _i32([o + Sq for o in RESUME_OFFS])
     bt_m = bt[:M].contiguous()
-    ms = _time_ms(lambda: ops.flash_prefill_paged(qq, ka, va, qo, ln, bt_m))
-    pairs = sum(o + i + 1 for o in offs for i in range(Sq))
-    keys = sum(o + Sq for o in offs)
-    bound, by = _bound_ms(4 * pairs * H * hd,
-                          (2 * keys * Hk * hd + 2 * M * Sq * H * hd) * es
-                          + 4 * sum(-(-(o + Sq) // PAGE) for o in offs), dtype)
-    log(f"[timing] flash_prefill_paged resume M=4 Sq=64 offsets={offs} "
-        f"page={PAGE}: kernel_ms={ms:.4f} bound_ms={bound:.5f} ({by})")
+    lib = resume_sdpa(qq, paged_gather(ka, bt_m).contiguous(),
+                      paged_gather(va, bt_m).contiguous())
+    r = dict(ms=_time_ms(lambda: ops.flash_prefill_paged(qq, ka, va, qo, ln,
+                                                         bt_m)),
+             device_ms=_device_ms(lambda: ops.flash_prefill_paged(
+                 qq, ka, va, qo, ln, bt_m)),
+             plain_ms=_time_ms(lambda: prefill_attention_paged_plain(
+                 qq, ka, va, qo, ln, bt_m)),
+             library_ms=_time_ms(lib), shape=f"resume M={M} Sq={Sq} "
+             f"offsets={RESUME_OFFS} H/Hk/hd={H}/{Hk}/{hd} G={G} "
+             f"page={PAGE} bf16")
+    r["bound_ms"], r["bound_by"] = resume_bound(
+        H, Hk, hd, es,
+        8 * M + 4 * sum(-(-(o + Sq) // PAGE) for o in RESUME_OFFS))
+    res["flash_prefill_paged@resume"] = r
+    _log_timing("flash_prefill_paged@resume", r)
     return res
 
 
@@ -819,7 +936,7 @@ def phase_parity_int8():
                 f"{_max_err(got, ops.flash_decode_quant(q, *lin, L)):.3e}")
             rows = _i32([5, 0, 3])
             bt_m = bt[rows.long()].contiguous()
-            for Sq in (16, 56, 160, 320):
+            for Sq in PARITY_SQ:
                 for off in (0, 3000):
                     qo = _i32([off, off + 17, off // 2])
                     ln = qo + Sq

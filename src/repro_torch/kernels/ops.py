@@ -31,7 +31,7 @@ from repro_torch.kernels.decode_attention import (
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.prefill_attention import (
-    prefill_attention_cuda, prefill_attention_paged_cuda,
+    check_tma_layout, prefill_attention_cuda, prefill_attention_paged_cuda,
     prefill_attention_paged_plain, prefill_attention_paged_quant_cuda,
     prefill_attention_paged_quant_plain, prefill_attention_plain,
     prefill_attention_quant_cuda, prefill_attention_quant_plain)
@@ -103,12 +103,9 @@ def _check_common(q, k_cache, v_cache, index_tensors, name: str,
         if hd not in _HEAD_DIMS:
             raise ValueError(f"{name}: the CUDA kernel takes hd in "
                              f"{_HEAD_DIMS}, got {hd}")
-        vec = 16 // k_cache.element_size()      # the kernels' 16-byte loads
-        for c in (k_cache, v_cache):
-            if (c.stride(3) != 1 or c.data_ptr() % 16
-                    or any(st % vec for st in c.stride()[:3])):
-                raise ValueError(f"{name}: cache rows need a unit stride on "
-                                 f"hd and 16-byte alignment")
+        # the kernels' 16-byte loads and TMA boxes
+        check_tma_layout(k_cache, name)
+        check_tma_layout(v_cache, name)
         if any(not t.is_contiguous() for t in index_tensors):
             raise ValueError(f"{name}: index tensors must be contiguous")
 

@@ -20,6 +20,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.prefill_attention import (  # noqa: E402
     prefill_attention_paged_plain, prefill_attention_paged_quant_plain,
     prefill_attention_plain, prefill_attention_quant_plain)
+from repro_torch.kernels.prefill_attention import (  # noqa: E402
+    merge_partials_cuda, merge_partials_plain, prefill_splits)
 from repro_torch.kernels.ssd_scan import ssd_inputs  # noqa: E402
 from repro_torch.models.attention import quantize_kv  # noqa: E402
 
@@ -141,6 +143,136 @@ def test_cuda_paged_wrappers_reject_bad_tables(cuda):
         ops.flash_decode_paged(q, ka, ka, L, _i32([[0], [1]]).long())
     with pytest.raises(ValueError, match="rows"):
         ops.flash_decode_paged(q, ka, ka, L, _i32([[0]]))
+
+
+# ---------------------------------------------------------------------------
+# bf16 chunk prefill on the tensor cores (wgmma, TMA tiles, split keys)
+# ---------------------------------------------------------------------------
+
+PREFILL_SQ = (1, 2, 8, 16, 56, 64, 160, 320)
+PREFILL_S = 8448            # room for a 320-token chunk at offset 8000
+
+
+def _prefill_rows(off: int):
+    """Three rows' offsets around ``off``: a chunk that straddles 64-row
+    pages and tiles, one near the start and one just below ``off``."""
+    return [off, off // 2 + 7, max(off - 61, 0)]
+
+
+def _splits(q, Hk, cap):
+    M, Sq, H, _ = q.shape
+    return prefill_splits(M, Sq, Hk, H // Hk, cap,
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,Hk,hd", HEADS)
+def test_cuda_bf16_prefill_matches_plain(cuda, H, Hk, hd):
+    """The bf16 slab kernel against its plain version on every chunk
+    length of the serving path (spec-verify 2..8 to 320-token chunks) at
+    offsets 0, 3000 and 8000, windows 0 and 256, a permuted slot order,
+    contiguous and strided cache views; the plan takes one split for the
+    largest and many for the smallest; two calls give the same bits."""
+    tol, dt = TOL["bfloat16"], torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(7 * H + hd)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    B, S = 4, PREFILL_S
+    wide_k, wide_v = rnd(B, S, 2 * Hk, hd), rnd(B, S, 2 * Hk, hd)
+    splits = set()
+    for kc, vc in ((wide_k[:, :, :Hk].contiguous(),
+                    wide_v[:, :, :Hk].contiguous()),
+                   (wide_k[:, :, ::2], wide_v[:, :, ::2])):
+        for Sq in PREFILL_SQ:
+            for off in (0, 3000, 8000):
+                for window in (0, 256):
+                    qo = _i32(_prefill_rows(off))
+                    ln, slots = qo + Sq, _i32([3, 0, 2])
+                    qq = rnd(3, Sq, H, hd)
+                    got = ops.flash_prefill(qq, kc, vc, qo, ln, window=window,
+                                            slot_idx=slots)
+                    want = prefill_attention_plain(qq, kc, vc, qo, ln,
+                                                   window=window,
+                                                   slot_idx=slots)
+                    assert _err(got, want) <= tol, (Sq, off, window)
+                    splits.add(_splits(qq, Hk, S))
+        # a batch that fills the card alone: one split, no merge
+        qq = rnd(8, 320, H, hd)
+        qo = _i32([0, 3000, 8000, 100, 5000, 64, 7000, 2500])
+        ln, slots = qo + 320, _i32([0, 1, 2, 3, 3, 2, 1, 0])
+        got = ops.flash_prefill(qq, kc, vc, qo, ln, slot_idx=slots)
+        assert _err(got, prefill_attention_plain(qq, kc, vc, qo, ln,
+                                                 slot_idx=slots)) <= tol
+        assert torch.equal(got, ops.flash_prefill(qq, kc, vc, qo, ln,
+                                                  slot_idx=slots))
+        splits.add(_splits(qq, Hk, S))
+    assert 1 in splits and max(splits) > 1, splits
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [16, 64, 128])
+@pytest.mark.parametrize("H,Hk,hd", HEADS)
+def test_cuda_bf16_prefill_paged_matches_plain(cuda, page, H, Hk, hd):
+    """The bf16 paged kernel against its plain version and against the
+    slab kernel on the gathered rows: pages of 16 (four boxes a tile),
+    64 (one) and 128 (half a page a tile), shuffled tables in which two
+    rows share pages and unmapped entries name the scratch page, chunks
+    that straddle pages, every chunk length, windows 0 and 256."""
+    tol, dt = TOL["bfloat16"], torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(H + hd + page)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    rng = np.random.default_rng(page + hd)
+    S = PREFILL_S
+    pmax = S // page
+    lens = [8000 + 320] * 3 + [100]
+    B = len(lens)
+    P = B * pmax
+    ka, va = rnd(P + 1, page, Hk, hd), rnd(P + 1, page, Hk, hd)
+    bt = torch.tensor(shared_tables(rng, lens, pmax, page, P), device="cuda")
+    kg, vg = paged_gather(ka, bt), paged_gather(va, bt)
+    for Sq in PREFILL_SQ:
+        for off in (0, 3000, 8000):
+            for window in (0, 256):
+                rows = _i32([2, 0, 1])
+                qo = _i32(_prefill_rows(off))
+                ln = qo + Sq
+                bt_m = bt[rows.long()].contiguous()
+                qq = rnd(3, Sq, H, hd)
+                got = ops.flash_prefill_paged(qq, ka, va, qo, ln, bt_m,
+                                              window=window)
+                want = prefill_attention_paged_plain(qq, ka, va, qo, ln,
+                                                     bt_m, window=window)
+                assert _err(got, want) <= tol, (Sq, off, window)
+                slab = ops.flash_prefill(qq, kg, vg, qo, ln, window=window,
+                                         slot_idx=rows)
+                assert _err(got, slab) <= tol, (Sq, off, window)
+    assert torch.equal(got, ops.flash_prefill_paged(qq, ka, va, qo, ln, bt_m,
+                                                    window=window))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_prefill_merge_matches_plain(cuda, dtype, hd):
+    """The split merge kernel alone against ``merge_partials_plain`` on
+    partial states with empty splits (m = -1e30, l = 0) among them."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(hd)
+    splits, M, Sq, H = 7, 3, 37, 16
+    part_o = torch.randn(splits, M, Sq, H, hd, generator=gen, device="cuda")
+    m = 8 * torch.randn(splits, M, Sq, H, generator=gen, device="cuda")
+    l = 1 + torch.rand(splits, M, Sq, H, generator=gen, device="cuda")
+    empty = torch.rand(splits, M, Sq, H, generator=gen, device="cuda") < 0.3
+    empty[0] = False
+    part_o[empty] = 0
+    part_ml = torch.stack([m.masked_fill(empty, -1e30),
+                           l.masked_fill(empty, 0)], dim=-1)
+    got = merge_partials_cuda(part_o, part_ml, dt)
+    torch.cuda.synchronize()
+    want = merge_partials_plain(part_o, part_ml, dt)
+    assert _err(got, want) <= {"float32": 1e-5, "bfloat16": 2e-2}[dtype]
 
 
 # ---------------------------------------------------------------------------
