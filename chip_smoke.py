@@ -147,6 +147,15 @@ Training (kernel 9, whole-sequence flash attention, under the
              ``parity_window_decode``: the four decode entries with
              windows 64 and 1024 against their plain versions (lengths 1,
              below, at and above the window; slab and paged).
+             ``parity_split_decode``: the four decode entries, which split
+             each row over fixed 256-key chunks and merge them, against
+             their plain versions at query groups 8, 3, 1 and 12
+             (48/4/128), lengths at the chunk edges, windows 0 and 1000;
+             every row's output bitwise equal alone, in the batch and
+             over twice the capacity; the merge kernel against its plain
+             form.  The decode timings add the profiler's device time
+             (chunk kernel + merge), the chunk and block counts, and the
+             device time at the other chunk sizes of 128, 256 and 512.
              ``timing_flash``: kernel 9 at B 4, S 2048, causal, SmolLM-360M
              heads 15/5/64 and Qwen2.5-3B heads 16/2/128 in f32 and bf16,
              beside its plain version, one SDPA call (``is_causal``,
@@ -458,10 +467,11 @@ def _time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters=40):
+def _device_ms(fn, iters=40, part=None):
     """Device time per call of every kernel fn launches (torch.profiler):
     the kernels' own time, where _time_ms also sees the host's launch
-    rate."""
+    rate.  ``part``: also return the time of the kernels whose name holds
+    that word."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -470,7 +480,12 @@ def _device_ms(fn, iters=40):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(_device_us(e) or 0 for e in prof.key_averages()) / iters / 1e3
+    ev = prof.key_averages()
+    total = sum(_device_us(e) or 0 for e in ev) / iters / 1e3
+    if part is None:
+        return total
+    return total, sum(_device_us(e) or 0 for e in ev
+                      if part in e.key) / iters / 1e3
 
 
 def _log_timing(name, r):
@@ -494,7 +509,8 @@ def phase_timing():
     a ~3k-token prompt)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
-    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_plain)
     from repro_torch.kernels.prefill_attention import prefill_attention_plain
     gen = torch.Generator(device="cuda").manual_seed(1)
     dtype, es = torch.bfloat16, 2
@@ -523,7 +539,9 @@ def phase_timing():
         ms=_time_ms(lambda: ops.flash_decode(q, kc, vc, L)),
         plain_ms=_time_ms(lambda: decode_attention_plain(q, kc, vc, L)),
         library_ms=_time_ms(lib), bound_ms=bound, bound_by=by,
-        shape=f"B={B} H/Hk/hd={H}/{Hk}/{hd} lens={lens} bf16")
+        shape=f"B={B} H/Hk/hd={H}/{Hk}/{hd} lens={lens} bf16",
+        **decode_split_info(lambda c: lambda: decode_attention_cuda(
+            q, kc, vc, L, chunk=c), S, lens, Hk, G))
 
     M, Sq, off = 1, 160, 3000
     qq = _rand(gen, (M, Sq, H, hd), dtype)
@@ -552,6 +570,7 @@ def phase_timing():
         shape=f"M={M} Sq={Sq} offset={off} H/Hk/hd={H}/{Hk}/{hd} G={G} bf16")
     for name, r in res.items():
         _log_timing(name, r)
+    _log_split("timing", "flash_decode", res["flash_decode"])
 
     # resume-batch shape of the slice: 4 rows of 64 tokens deep in context
     M, Sq = 4, 64
@@ -615,7 +634,8 @@ def phase_timing_paged():
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (
-        decode_attention_paged_plain, paged_gather)
+        decode_attention_paged_cuda, decode_attention_paged_plain,
+        paged_gather)
     from repro_torch.kernels.prefill_attention import (
         prefill_attention_paged_plain)
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -650,7 +670,9 @@ def phase_timing_paged():
         plain_ms=_time_ms(lambda: decode_attention_paged_plain(q, ka, va, L,
                                                                bt)),
         library_ms=_time_ms(lib), bound_ms=bound, bound_by=by,
-        shape=f"B={B} H/Hk/hd={H}/{Hk}/{hd} lens={lens} page={PAGE} bf16")
+        shape=f"B={B} H/Hk/hd={H}/{Hk}/{hd} lens={lens} page={PAGE} bf16",
+        **decode_split_info(lambda c: lambda: decode_attention_paged_cuda(
+            q, ka, va, L, bt, chunk=c), pmax * PAGE, lens, Hk, G))
 
     Sq, off = 160, 3000
     qq = _rand(gen, (1, Sq, H, hd), dtype)
@@ -680,6 +702,7 @@ def phase_timing_paged():
               f"page={PAGE} bf16")
     for name, r in res.items():
         _log_timing(name, r)
+    _log_split("timing", "flash_decode_paged", res["flash_decode_paged"])
 
     M, Sq = 4, 64
     qq = _rand(gen, (M, Sq, H, hd), dtype)
@@ -973,7 +996,8 @@ def phase_timing_int8():
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (
-        decode_attention_paged_quant_plain, decode_attention_quant_plain,
+        decode_attention_paged_quant_cuda, decode_attention_paged_quant_plain,
+        decode_attention_quant_cuda, decode_attention_quant_plain,
         paged_gather)
     from repro_torch.kernels.prefill_attention import (
         prefill_attention_paged_quant_plain, prefill_attention_quant_plain)
@@ -1021,7 +1045,9 @@ def phase_timing_int8():
         plain_ms=_time_ms(lambda: decode_attention_quant_plain(q, *kv, L)),
         library_ms=None, sdpa_dequant_ms=sdpa_ms(qt, kt, vt, mask),
         bound_ms=bound, bound_by=by,
-        shape=f"B={B} H/Hk/hd={H}/{Hk}/{hd} lens={lens} int8 K/V, bf16")
+        shape=f"B={B} H/Hk/hd={H}/{Hk}/{hd} lens={lens} int8 K/V, bf16",
+        **decode_split_info(lambda c: lambda: decode_attention_quant_cuda(
+            q, *kv, L, chunk=c), S, lens, Hk, G))
     si = _i32([2])
     kt = deq(kq[2:3, :Lk], ks[2:3, :Lk]).transpose(1, 2)
     vt = deq(vq[2:3, :Lk], vs[2:3, :Lk]).transpose(1, 2)
@@ -1066,7 +1092,10 @@ def phase_timing_int8():
         library_ms=None, sdpa_dequant_ms=sdpa_ms(qt, kt, vt, mask),
         bound_ms=bound, bound_by=by,
         shape=f"B={B} H/Hk/hd={H}/{Hk}/{hd} lens={lens} page={PAGE} "
-              f"int8 K/V, bf16")
+              f"int8 K/V, bf16",
+        **decode_split_info(
+            lambda c: lambda: decode_attention_paged_quant_cuda(
+                q, *arenas, L, bt, chunk=c), pmax * PAGE, lens, Hk, G))
     bt_1 = bt[2:3].contiguous()
     kt = deq(lin[0][2:3, :Lk], lin[1][2:3, :Lk]).transpose(1, 2)
     vt = deq(lin[2][2:3, :Lk], lin[3][2:3, :Lk]).transpose(1, 2)
@@ -1086,6 +1115,8 @@ def phase_timing_int8():
             f"PyTorch call reads int8) sdpa_on_dequantised_kv_ms="
             f"{r['sdpa_dequant_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+        if "chunks" in r:
+            _log_split("timing_int8", name, r)
     return res
 
 
@@ -1865,6 +1896,154 @@ def phase_parity_window_decode():
     return worst
 
 
+# the parity heads and StarCoder2-15B's (48, 4, 128): query group 12
+SPLIT_HEADS = PARITY_HEADS + ((48, 4, 128),)
+
+
+def split_decode_entries(kv, window: int = 0):
+    """The four decode entries over one set of caches: name -> (kernel,
+    plain version), each called as f(q, L, bt).  kv: slab caches, their
+    int8 form, page arenas and their int8 form (bt: the block tables,
+    unused by the slab entries)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_paged_plain, decode_attention_paged_quant_plain,
+        decode_attention_plain, decode_attention_quant_plain)
+    kc, vc = kv["slab"]
+    qv, pa, pq = kv["quant"], kv["paged"], kv["paged_quant"]
+    return {
+        "flash_decode": (
+            lambda q, L, bt: ops.flash_decode(q, kc, vc, L, window=window),
+            lambda q, L, bt: decode_attention_plain(q, kc, vc, L, window)),
+        "flash_decode_paged": (
+            lambda q, L, bt: ops.flash_decode_paged(q, *pa, L, bt,
+                                                    window=window),
+            lambda q, L, bt: decode_attention_paged_plain(q, *pa, L, bt,
+                                                          window)),
+        "flash_decode_quant": (
+            lambda q, L, bt: ops.flash_decode_quant(q, *qv, L,
+                                                    window=window),
+            lambda q, L, bt: decode_attention_quant_plain(q, *qv, L,
+                                                          window)),
+        "flash_decode_paged_quant": (
+            lambda q, L, bt: ops.flash_decode_paged_quant(q, *pq, L, bt,
+                                                          window=window),
+            lambda q, L, bt: decode_attention_paged_quant_plain(
+                q, *pq, L, bt, window))}
+
+
+def phase_parity_split_decode():
+    """The decode entries' split over fixed key chunks: the four entries
+    against their plain versions at query groups 8, 3, 1 and 12 (the
+    parity heads and 48/4/128), S_max 8192, lengths at the chunk edges
+    and the full capacity, window 0 and 1000; each entry's output for
+    every row bitwise equal computed alone, in the batch of 6 and over a
+    cache (tables) of twice the capacity; the merge kernel against its
+    plain form.  Returns the worst error per entry."""
+    from repro_torch.kernels.decode_attention import (
+        DECODE_CHUNK, decode_merge_cuda, decode_merge_plain,
+        decode_partials_plain)
+    from repro_torch.models.attention import quantize_kv
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rng = np.random.default_rng(12)
+    worst = dict.fromkeys(DECODE_KERNELS, 0.0)
+    C, S, B = DECODE_CHUNK, 8192, 6
+    pmax, P = S // PAGE, B * (S // PAGE)
+    lens = [1, C - 1, C, C + 1, 8000, S]
+    L = _i32(lens)
+    for H, Hk, hd in SPLIT_HEADS:
+        for dtype in (torch.bfloat16, torch.float32):
+            kc, vc = (_rand(gen, (B, S, Hk, hd), dtype) for _ in range(2))
+            ka, va = (_rand(gen, (P + 1, PAGE, Hk, hd), dtype)
+                      for _ in range(2))
+            kv = dict(slab=(kc, vc), quant=(*quantize_kv(kc),
+                                            *quantize_kv(vc)),
+                      paged=(ka, va), paged_quant=(*quantize_kv(ka),
+                                                   *quantize_kv(va)))
+            bt = shared_tables(rng, [S] * B, pmax, P)
+            # twice the capacity: zero rows past S, scratch-page entries
+            big = dict(kv)
+            for key in ("slab", "quant"):
+                big[key] = tuple(torch.cat([t, torch.zeros_like(t)], dim=1)
+                                 for t in kv[key])
+            bt2 = torch.cat([bt, torch.full_like(bt, P)], dim=1)
+            q = _rand(gen, (B, 1, H, hd), dtype)
+            dt = f"{H}/{Hk}/{hd} {str(dtype)[6:]}"
+            for window in (0, 1000):
+                small = split_decode_entries(kv, window)
+                large = split_decode_entries(big, window)
+                alone = [split_decode_entries(dict(
+                    kv, slab=tuple(t[b:b + 1] for t in kv["slab"]),
+                    quant=tuple(t[b:b + 1] for t in kv["quant"])), window)
+                    for b in range(B)]
+                for name, (kern, plain) in small.items():
+                    got = kern(q, L, bt)
+                    err = _max_err(got, plain(q, L, bt))
+                    same = torch.equal(large[name][0](q, L, bt2), got) and all(
+                        torch.equal(alone[b][name][0](
+                            q[b:b + 1], L[b:b + 1],
+                            bt[b:b + 1].contiguous())[0], got[b])
+                        for b in range(B))
+                    torch.cuda.synchronize()
+                    log(f"[parity_split_decode] {name} {dt} window={window} "
+                        f"lens={lens} max_abs_err={err:.3e} "
+                        f"bitwise_alone_batch_2x_capacity={same}")
+                    assert err <= TOL[dtype], (name, dt, window, err)
+                    assert same, (name, dt, window, "not invariant")
+                    worst[name] = max(worst[name], err)
+            del kv, big, kc, vc, ka, va
+    # the merge kernel against its plain form, on plain partials
+    for hd in (64, 128):
+        H, Hk = 48, 4
+        q = torch.randn(B, 1, H, hd, generator=gen, device="cuda")
+        kc, vc = (torch.randn(B, S, Hk, hd, generator=gen, device="cuda")
+                  for _ in range(2))
+        for window in (0, 1000):
+            parts = decode_partials_plain(q, kc, vc, L, window)
+            for dtype in (torch.bfloat16, torch.float32):
+                err = _max_err(
+                    decode_merge_cuda(*parts, L, S, dtype, window),
+                    decode_merge_plain(*parts, L, S, dtype, window))
+                torch.cuda.synchronize()
+                log(f"[parity_split_decode] merge hd={hd} H={H} "
+                    f"window={window} {str(dtype)[6:]} max_abs_err={err:.3e}")
+                assert err <= TOL[dtype], ("decode merge", err)
+    return worst
+
+
+def decode_split_info(launch, cap: int, lens, Hk: int, G: int, window=0):
+    """The split plan and device times of one decode call: ``launch(chunk)``
+    gives a callable that launches the entry's kernel with that chunk (the
+    wrapper, no op count).  Chunks per row, blocks (launched, and live:
+    the chunks holding a live key), and the profiler's device time (chunk
+    kernel + merge) at DECODE_CHUNK and at the other chunks of 128, 256
+    and 512 keys."""
+    from repro_torch.kernels.decode_attention import (DECODE_CHUNK,
+                                                      decode_chunks)
+    groups = -(-G // 8)
+    live = sum(-(-n // DECODE_CHUNK) - (max(0, n - window) // DECODE_CHUNK
+                                         if window > 0 else 0) for n in lens)
+    device_ms, merge_ms = _device_ms(launch(DECODE_CHUNK), part="merge")
+    return dict(
+        chunks=decode_chunks(cap),
+        blocks=decode_chunks(cap) * Hk * groups * len(lens),
+        live_blocks=live * Hk * groups, device_ms=device_ms,
+        merge_ms=merge_ms,
+        device_ms_by_chunk={c: _device_ms(launch(c)) for c in (128, 256, 512)
+                            if c != DECODE_CHUNK})
+
+
+def _log_split(tag, name, r):
+    from repro_torch.kernels.decode_attention import DECODE_CHUNK
+    log(f"[{tag}] {name} split: {DECODE_CHUNK} keys a chunk, chunks "
+        f"{r['chunks']}, "
+        f"blocks {r['blocks']} ({r['live_blocks']} live), device_ms "
+        f"{r['device_ms']:.4f} (main + merge; merge {r['merge_ms']:.4f}); "
+        f"other chunks: "
+        + ", ".join(f"{c} keys {v:.4f}"
+                    for c, v in r["device_ms_by_chunk"].items()))
+
+
 def phase_timing_flash():
     """Kernel 9 at the training slice's shapes, B 4, S 2048, causal:
     SmolLM-360M heads 15/5/64 and Qwen2.5-3B heads 16/2/128, in f32 (the
@@ -2168,6 +2347,8 @@ def main() -> int:
     worst.update(phase_parity_int8())
     worst.update(phase_parity_flash())
     for k, e in phase_parity_window_decode().items():
+        worst[k] = max(worst[k], e)
+    for k, e in phase_parity_split_decode().items():
         worst[k] = max(worst[k], e)
     stamp("parity")
     timing = phase_timing()

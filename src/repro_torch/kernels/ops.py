@@ -24,7 +24,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels.decode_attention import (
-    MAX_GROUP, decode_attention_cuda, decode_attention_paged_cuda,
+    decode_attention_cuda, decode_attention_paged_cuda,
     decode_attention_paged_plain, decode_attention_paged_quant_cuda,
     decode_attention_paged_quant_plain, decode_attention_plain,
     decode_attention_quant_cuda, decode_attention_quant_plain)
@@ -183,9 +183,6 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int = 0):
                          "and lengths of B rows")
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, lengths, window)
-    if q.shape[2] // k_cache.shape[2] > MAX_GROUP:
-        raise ValueError(f"flash_decode: more than {MAX_GROUP} query heads "
-                         f"per KV head")
     if q.stride(3) != 1:
         q = q.contiguous()
     out = decode_attention_cuda(q, k_cache, v_cache, lengths, window)
@@ -234,9 +231,6 @@ def flash_decode_paged(q, k_arena, v_arena, lengths, block_tables, *,
     if not q.is_cuda:
         return decode_attention_paged_plain(q, k_arena, v_arena, lengths,
                                             block_tables, window)
-    if q.shape[2] // k_arena.shape[2] > MAX_GROUP:
-        raise ValueError(f"flash_decode_paged: more than {MAX_GROUP} query "
-                         f"heads per KV head")
     if q.stride(3) != 1:
         q = q.contiguous()
     out = decode_attention_paged_cuda(q, k_arena, v_arena, lengths,
@@ -313,9 +307,6 @@ def flash_decode_quant(q, k_q, k_s, v_q, v_s, lengths, *, window: int = 0):
     if not q.is_cuda:
         return decode_attention_quant_plain(q, k_q, k_s, v_q, v_s, lengths,
                                             window)
-    if q.shape[2] // k_q.shape[2] > MAX_GROUP:
-        raise ValueError(f"flash_decode_quant: more than {MAX_GROUP} query "
-                         f"heads per KV head")
     if q.stride(3) != 1:
         q = q.contiguous()
     out = decode_attention_quant_cuda(q, k_q, k_s, v_q, v_s, lengths, window)
@@ -341,9 +332,6 @@ def flash_decode_paged_quant(q, k_q, k_s, v_q, v_s, lengths, block_tables,
         return decode_attention_paged_quant_plain(q, k_q, k_s, v_q, v_s,
                                                   lengths, block_tables,
                                                   window)
-    if q.shape[2] // k_q.shape[2] > MAX_GROUP:
-        raise ValueError(f"flash_decode_paged_quant: more than {MAX_GROUP} "
-                         f"query heads per KV head")
     if q.stride(3) != 1:
         q = q.contiguous()
     out = decode_attention_paged_quant_cuda(q, k_q, k_s, v_q, v_s, lengths,

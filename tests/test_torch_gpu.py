@@ -651,3 +651,144 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# the decode entries' split over fixed key chunks
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    DECODE_CHUNK, decode_merge_cuda, decode_merge_plain,
+    decode_partials_plain)
+
+# the card tests' heads and StarCoder2-15B's (48, 4, 128): query group 12
+SPLIT_HEADS = HEADS + [(48, 4, 128)]
+
+
+def _split_inputs(dt, Hk, hd, S, page, seed):
+    """Slab caches [6, S, Hk, hd], their int8 form, and page arenas of
+    ``page`` rows (with their int8 form) behind shuffled tables of S //
+    page entries, rows 0 and 1 sharing pages."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    rng = np.random.default_rng(seed)
+    B, pmax = 6, S // page
+    P = B * pmax
+    kc, vc = rnd(B, S, Hk, hd), rnd(B, S, Hk, hd)
+    ka, va = rnd(P + 1, page, Hk, hd), rnd(P + 1, page, Hk, hd)
+    bt = torch.tensor(shared_tables(rng, [S] * B, pmax, page, P),
+                      device="cuda")
+    return dict(slab=(kc, vc), quant=(*quantize_kv(kc), *quantize_kv(vc)),
+                paged=(ka, va), paged_quant=(*quantize_kv(ka),
+                                             *quantize_kv(va)), bt=bt)
+
+
+def _split_entries(x, window):
+    """name -> (kernel, plain version), each called as f(q, L, bt) with
+    ``x`` from ``_split_inputs`` (bt: the block tables, unused by the slab
+    entries)."""
+    kc, vc = x["slab"]
+    qv, pa, pq = x["quant"], x["paged"], x["paged_quant"]
+    return {
+        "flash_decode": (
+            lambda q, L, bt: ops.flash_decode(q, kc, vc, L, window=window),
+            lambda q, L, bt: decode_attention_plain(q, kc, vc, L, window)),
+        "flash_decode_quant": (
+            lambda q, L, bt: ops.flash_decode_quant(q, *qv, L,
+                                                    window=window),
+            lambda q, L, bt: decode_attention_quant_plain(q, *qv, L,
+                                                          window)),
+        "flash_decode_paged": (
+            lambda q, L, bt: ops.flash_decode_paged(q, *pa, L, bt,
+                                                    window=window),
+            lambda q, L, bt: decode_attention_paged_plain(q, *pa, L, bt,
+                                                          window)),
+        "flash_decode_paged_quant": (
+            lambda q, L, bt: ops.flash_decode_paged_quant(q, *pq, L, bt,
+                                                          window=window),
+            lambda q, L, bt: decode_attention_paged_quant_plain(
+                q, *pq, L, bt, window)),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hk,hd", SPLIT_HEADS)
+def test_cuda_split_decode_matches_plain(cuda, dtype, window, H, Hk, hd):
+    """Each of the four decode entries against its plain version at
+    lengths at the chunk edges and the full capacity (4 chunks), with and
+    without a window, query groups 1 to 12."""
+    tol, dt = TOL[dtype], getattr(torch, dtype)
+    C, S, page = DECODE_CHUNK, 4 * DECODE_CHUNK, 64
+    seed = H + Hk + hd + window
+    x = _split_inputs(dt, Hk, hd, S, page, seed)
+    L = _i32([1, C - 1, C, C + 1, 3 * C + 5, S])
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    q = torch.randn(6, 1, H, hd, generator=gen, device="cuda").to(dt)
+    for name, (kern, plain) in _split_entries(x, window).items():
+        err = _err(kern(q, L, x["bt"]), plain(q, L, x["bt"]))
+        assert err <= tol, (name, err)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hk,hd", [(16, 2, 128), (15, 5, 64),
+                                     (48, 4, 128)])
+def test_cuda_split_decode_is_batch_and_capacity_invariant(cuda, dtype,
+                                                           window, H, Hk,
+                                                           hd):
+    """Each entry's output for a row is bitwise the same computed alone,
+    in a batch of 6, and over a cache (or tables) of twice the
+    capacity."""
+    dt = getattr(torch, dtype)
+    C, S, page = DECODE_CHUNK, 4 * DECODE_CHUNK, 16
+    seed = 7 * H + hd + window
+    x = _split_inputs(dt, Hk, hd, S, page, seed)
+    big = dict(x)
+    for key in ("slab", "quant"):
+        big[key] = tuple(torch.cat([t, torch.zeros_like(t)], dim=1)
+                         for t in x[key])
+    scratch = x["paged"][0].shape[0] - 1
+    big["bt"] = torch.cat([x["bt"], torch.full_like(x["bt"], scratch)],
+                          dim=1)
+    L = _i32([C + 1, 1, S, C - 1, 2 * C, 3 * C + 5])
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    q = torch.randn(6, 1, H, hd, generator=gen, device="cuda").to(dt)
+    small, large = _split_entries(x, window), _split_entries(big, window)
+    for name in small:
+        batch = small[name][0](q, L, x["bt"])
+        over = large[name][0](q, L, big["bt"])
+        assert torch.equal(over, batch), name
+        for b in range(6):
+            row = dict(x, bt=x["bt"][b:b + 1].contiguous())
+            for key in ("slab", "quant"):
+                row[key] = tuple(t[b:b + 1] for t in x[key])
+            alone = _split_entries(row, window)[name][0](
+                q[b:b + 1], L[b:b + 1], row["bt"])
+            assert torch.equal(alone[0], batch[b]), (name, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_decode_merge_matches_plain(cuda, dtype, window, hd):
+    """The decode merge kernel against its plain form on the partials of
+    ``decode_partials_plain``, lengths at the chunk edges (empty chunks
+    included)."""
+    dt = getattr(torch, dtype)
+    C, S, H, Hk = DECODE_CHUNK, 4 * DECODE_CHUNK, 12, 2
+    gen = torch.Generator(device="cuda").manual_seed(hd + window)
+    q = torch.randn(6, 1, H, hd, generator=gen, device="cuda")
+    kc = torch.randn(6, S, Hk, hd, generator=gen, device="cuda")
+    vc = torch.randn(6, S, Hk, hd, generator=gen, device="cuda")
+    L = _i32([1, C - 1, C, C + 1, 3 * C + 5, S])
+    part_o, part_ml = decode_partials_plain(q, kc, vc, L, window)
+    got = decode_merge_cuda(part_o, part_ml, L, S, dt, window)
+    want = decode_merge_plain(part_o, part_ml, L, S, dt, window)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= TOL[dtype]
