@@ -11,7 +11,7 @@ failure:
              ptxas's register / shared-memory / spill lines, and the
              count of tensor-core (HGMMA) instructions in each built
              library's SASS (``cuobjdump -sass``; > 0 for
-             prefill_attention).
+             prefill_attention and moe_gmm).
 3. parity  — each kernel against its plain PyTorch version at the main
              path's shapes (Qwen2.5-3B heads 16/2/128, SmolLM-360M heads
              15/5/64 and OLMoE-1B-7B heads 16/16/128, S_max 8192, ragged
@@ -81,14 +81,19 @@ MoE (the grouped matmul of the experts, ``moe_gmm``):
 
 3-4.       — parity of the grouped matmul at OLMoE-1B-7B's expert widths
              (64 experts, d 2048, f 1024): up and down products for C in
-             {1, 6, 25, 50, 160}, dense mode's expert-stride-0 view at C 6
-             and 160, and the JAX kernel test's shapes, f32 within 1e-4
-             and bf16 within 2e-2; timed in bf16 beside its plain version,
-             one ``torch.bmm`` (timed only here) and the bound
-             max(2ECdf / 989e12, bytes / 3.35e12) (x read once, the [C, d]
-             tokens under the broadcast; w read once; the output written
-             once) at dense decode (C 6), a gmm cold chunk (C 25) and a
-             dense cold chunk (C 160), and the down product at C 6.
+             {1, 6, 25, 40, 50, 160, 256}, dense mode's expert-stride-0
+             view at C 6, 160 and 256, Mixtral-8x22B's up product (8
+             experts, d 6144, f 16384) at C 6 and 160, and the JAX kernel
+             test's shapes, f32 within 1e-4 and bf16 within 2e-2; a row's
+             bf16 output bitwise the same at C 1, 6, 25, 40, 160 and 256
+             and under a stride-0 view and its contiguous copy.  Timed in
+             bf16, up and down at C 1, 6, 25, 40, 160 and 256 (the up
+             product through the stride-0 view where dense mode sends it:
+             C 6, 160, 256), with CUDA events and the profiler's device
+             time, beside its plain version, one ``torch.bmm`` (timed only
+             here) and the bound max(2ECdf / 989e12, bytes / 3.35e12) (x
+             read once, the [C, d] tokens under the broadcast; w read
+             once; the output written once).
 16-17. identity_moe and its paged twin — float32 OLMoE-1B-7B widths cut
              to 4 layers, engine ``moe_mode="dense"``, 3 agents, slab then
              paged (radix): every stream equals the isolated greedy oracle
@@ -283,7 +288,7 @@ def phase_build():
                               check=True).stdout
         hgmma[n] = sum("HGMMA" in line for line in sass.splitlines())
     log(f"[build] HGMMA instructions in SASS: {hgmma}")
-    assert hgmma["prefill_attention"] > 0, hgmma
+    assert hgmma["prefill_attention"] > 0 and hgmma["moe_gmm"] > 0, hgmma
 
 
 def _rand(gen, shape, dtype):
@@ -480,12 +485,15 @@ def _device_ms(fn, iters=40, part=None):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    ev = prof.key_averages()
-    total = sum(_device_us(e) or 0 for e in ev) / iters / 1e3
+    # each kernel's mean time times its launches per call: a trace that
+    # lost some events (seen on the card) does not shrink the figure
+    ev = [e for e in prof.key_averages() if e.count]
+    per_call = {e.key: (_device_us(e) or 0) / e.count
+                * max(1, round(e.count / iters)) for e in ev}
+    total = sum(per_call.values()) / 1e3
     if part is None:
         return total
-    return total, sum(_device_us(e) or 0 for e in ev
-                      if part in e.key) / iters / 1e3
+    return total, sum(t for k, t in per_call.items() if part in k) / 1e3
 
 
 def _log_timing(name, r):
@@ -820,16 +828,18 @@ def _gmm_inputs(gen, E, C, d, f, dtype, *, broadcast=False):
 def phase_parity_moe():
     """The grouped matmul vs its plain version: OLMoE's up/gate and down
     products over the C of each serving call, dense mode's stride-0 view,
-    and the JAX kernel test's shapes."""
+    Mixtral-8x22B's up product, and the JAX kernel test's shapes; then the
+    bf16 rows' invariance to C and to the stride-0 view."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.moe_gmm import gmm_plain
     gen = torch.Generator(device="cuda").manual_seed(6)
     cases = ([("up", MOE_E, C, MOE_D, MOE_F, False)
-              for C in (1, 6, 25, 50, 160)]
+              for C in (1, 6, 25, 40, 50, 160, 256)]
              + [("down", MOE_E, C, MOE_F, MOE_D, False)
-                for C in (1, 6, 25, 50, 160)]
+                for C in (1, 6, 25, 40, 50, 160, 256)]
              + [("up stride-0", MOE_E, C, MOE_D, MOE_F, True)
-                for C in (6, 160)]
+                for C in (6, 160, 256)]
+             + [("mixtral up", 8, C, 6144, 16384, False) for C in (6, 160)]
              + [("jax test", E, C, d, f, False)
                 for E, C, d, f in ((4, 32, 64, 96), (2, 50, 48, 40),
                                    (8, 16, 128, 256))])
@@ -846,7 +856,46 @@ def phase_parity_moe():
             assert got.shape == (E, C, f) and got.dtype == dtype
             assert err <= TOL[dtype], ("moe_gmm", what, E, C, d, f, err)
             worst = max(worst, err)
+            del x, w, got
+    parity_gmm_invariance(gen)
+    parity_gmm_rounding(gen)
     return {"moe_gmm": worst}
+
+
+def parity_gmm_rounding(gen):
+    """How many bf16 outputs of the kernel, of its plain version (an f32
+    einsum) and of ``torch.bmm`` (one tensor-core chain over all of d) are
+    off the f64 product rounded to bf16, at OLMoE's up product, C 160."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gmm import gmm_plain
+    x, w = _gmm_inputs(gen, MOE_E, 160, MOE_D, MOE_F, torch.bfloat16)
+    exact = torch.einsum("ecd,edf->ecf", x.double(), w.double()).bfloat16()
+    off = {k: (v != exact).sum().item() for k, v in (
+        ("kernel", ops.moe_gmm(x, w)), ("plain", gmm_plain(x, w)),
+        ("torch.bmm", torch.bmm(x, w)))}
+    log(f"[parity_moe] bf16 outputs off the f64 product of {exact.numel()} "
+        f"(up, C=160): {off}")
+
+
+def parity_gmm_invariance(gen):
+    """bf16: the first c rows of a 256-row call, run alone at each serving
+    C, give the same bits; so do a stride-0 view and its contiguous copy."""
+    from repro_torch.kernels import ops
+    for what, d, f in (("up", MOE_D, MOE_F), ("down", MOE_F, MOE_D)):
+        x, w = _gmm_inputs(gen, MOE_E, 256, d, f, torch.bfloat16)
+        full = ops.moe_gmm(x, w)
+        for c in (1, 6, 25, 40, 160, 256):
+            same = torch.equal(ops.moe_gmm(x[:, :c].contiguous(), w),
+                               full[:, :c])
+            log(f"[parity_moe] {what} rows of C=256 alone at C={c}: "
+                f"bitwise equal={same}")
+            assert same, ("moe_gmm row invariance", what, c)
+        view = x[0].expand(MOE_E, 256, d)
+        same = torch.equal(ops.moe_gmm(view, w),
+                           ops.moe_gmm(view.contiguous(), w))
+        log(f"[parity_moe] {what} stride-0 view vs its copy: bitwise "
+            f"equal={same}")
+        assert same, ("moe_gmm stride-0 invariance", what)
 
 
 def gmm_bound(E, C, d, f, es, broadcast):
@@ -856,34 +905,47 @@ def gmm_bound(E, C, d, f, es, broadcast):
     return 2 * E * C * d * f, x_bytes + E * d * f * es + E * C * f * es
 
 
+# (C, up through dense mode's stride-0 view): gmm decode, dense decode,
+# gmm cold chunk, gmm resume batch, dense cold chunk, dense resume batch
+GMM_TIMING_C = ((1, False), (6, True), (25, False), (40, False), (160, True),
+                (256, True))
+
+
 def phase_timing_moe():
     """The kernel, its plain version and one ``torch.bmm`` (the library
-    call computing the same function, timed here only) in bf16 at
-    OLMoE's serving calls: dense decode (6 lanes, stride-0 view), a gmm
-    160-token cold chunk (C = 25), a dense 160-token chunk (stride-0 view)
-    for the up projection, and the down projection at dense decode."""
+    call computing the same function, timed here only) in bf16 at OLMoE's
+    serving calls, up and down: CUDA events per call, and the profiler's
+    device time of the kernel and of the bmm.  The kernel line's entry is
+    the up product at dense decode (C 6, stride-0 view)."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.moe_gmm import gmm_plain
+    from repro_torch.kernels.moe_gmm import gmm_plain, gmm_plan
     gen = torch.Generator(device="cuda").manual_seed(7)
     dtype, es = torch.bfloat16, 2
     res = {}
-    for what, C, d, f, bc in (("up dense decode", 6, MOE_D, MOE_F, True),
-                              ("up gmm cold chunk", 25, MOE_D, MOE_F, False),
-                              ("up dense cold chunk", 160, MOE_D, MOE_F,
-                               True),
-                              ("down dense decode", 6, MOE_F, MOE_D, False)):
-        x, w = _gmm_inputs(gen, MOE_E, C, d, f, dtype, broadcast=bc)
-        bound, by = _bound_ms(*gmm_bound(MOE_E, C, d, f, es, bc), dtype)
-        r = dict(ms=_time_ms(lambda: ops.moe_gmm(x, w)),
-                 plain_ms=_time_ms(lambda: gmm_plain(x, w)),
-                 library_ms=_time_ms(lambda: torch.bmm(x, w)),
-                 bound_ms=bound, bound_by=by)
-        log(f"[timing_moe] moe_gmm {what} E/C/d/f={MOE_E}/{C}/{d}/{f} bf16: "
-            f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"library_ms={r['library_ms']:.4f} (torch.bmm) "
-            f"bound_ms={bound:.5f} ({by})")
-        if what == "up dense decode":
-            res["moe_gmm"] = r
+    for what, d, f in (("up", MOE_D, MOE_F), ("down", MOE_F, MOE_D)):
+        for C, up_bc in GMM_TIMING_C:
+            bc = up_bc and what == "up"
+            x, w = _gmm_inputs(gen, MOE_E, C, d, f, dtype, broadcast=bc)
+            bound, by = _bound_ms(*gmm_bound(MOE_E, C, d, f, es, bc), dtype)
+            plan = gmm_plan(MOE_E, C, d, f, dtype)
+            r = dict(ms=_time_ms(lambda: ops.moe_gmm(x, w)),
+                     device_ms=_device_ms(lambda: ops.moe_gmm(x, w)),
+                     plain_ms=_time_ms(lambda: gmm_plain(x, w)),
+                     library_ms=_time_ms(lambda: torch.bmm(x, w)),
+                     library_device_ms=_device_ms(lambda: torch.bmm(x, w)),
+                     bound_ms=bound, bound_by=by)
+            log(f"[timing_moe] moe_gmm {what} C={C} "
+                f"{'stride-0 ' if bc else ''}E/d/f={MOE_E}/{d}/{f} bf16: "
+                f"kernel_ms={r['ms']:.4f} device_ms={r['device_ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} "
+                f"library_ms={r['library_ms']:.4f} device "
+                f"{r['library_device_ms']:.4f} (torch.bmm) "
+                f"bound_ms={bound:.5f} ({by}); device/bound="
+                f"{r['device_ms'] / bound:.2f}; C-tiles={plan.tiles} "
+                f"stages={plan.stages} work tiles={plan.grid[0] * MOE_E}")
+            if what == "up" and C == 6:
+                res["moe_gmm"] = r
+            del x, w
     return res
 
 

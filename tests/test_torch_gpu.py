@@ -792,3 +792,70 @@ def test_cuda_decode_merge_matches_plain(cuda, dtype, window, hd):
     want = decode_merge_plain(part_o, part_ml, L, S, dt, window)
     torch.cuda.synchronize()
     assert _err(got, want) <= TOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# the MoE grouped matmul on the tensor cores (bf16) and its tile plan
+# ---------------------------------------------------------------------------
+
+# (E, C, d, f, x through an expert-stride-0 view): OLMoE's up and down at
+# each serving C (the up product at dense mode's C through the view),
+# ragged C, d and f, two row groups (C > 256), one expert
+GMM_TC_CASES = (
+    [(64, C, 2048, 1024, C in (6, 160, 256)) for C in (1, 6, 25, 40, 160, 256)]
+    + [(64, C, 1024, 2048, False) for C in (1, 6, 25, 40, 160, 256)]
+    + [(4, 32, 64, 96, False), (2, 50, 48, 40, False), (3, 7, 24, 8, True),
+       (5, 33, 40, 136, False), (2, 65, 8, 16, True), (3, 300, 24, 8, False),
+       (2, 600, 136, 200, True), (1, 5, 64, 72, False)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,d,f,bc", GMM_TC_CASES)
+def test_cuda_moe_gmm_serving_shapes(cuda, dtype, E, C, d, f, bc):
+    """bf16 (tensor cores) and f32 (CUDA cores) against the plain version
+    at the serving shapes, ragged shapes and stride-0 views; one launch
+    counted per call."""
+    from repro_torch.kernels.moe_gmm import gmm_plain
+    tol, dt = TOL[dtype], getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(3 * E + C + d + f)
+    x, w = _gmm_inputs(gen, E, C, d, f, dt)
+    if bc:
+        x = x[0].expand(E, C, d)
+    before = ops.LAUNCHES["moe_gmm"]
+    got = ops.moe_gmm(x, w)
+    assert ops.LAUNCHES["moe_gmm"] == before + 1
+    want = gmm_plain(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (E, C, f)
+    assert _err(got, want) <= tol, _err(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,f", [(2048, 1024), (1024, 2048), (40, 136)])
+def test_cuda_moe_gmm_rows_are_batch_invariant(cuda, d, f):
+    """bf16: a row's output is the same bits at every C (the first c rows
+    of a 256-row call run alone), and under a stride-0 view and its
+    contiguous copy: the contraction order does not depend on C."""
+    gen = torch.Generator(device="cuda").manual_seed(d + f)
+    x, w = _gmm_inputs(gen, 8, 256, d, f, torch.bfloat16)
+    full = ops.moe_gmm(x, w)
+    for c in (1, 6, 25, 40, 160, 256):
+        assert torch.equal(ops.moe_gmm(x[:, :c].contiguous(), w),
+                           full[:, :c]), c
+    view = x[0].expand(8, 256, d)
+    assert torch.equal(ops.moe_gmm(view, w), ops.moe_gmm(view.contiguous(), w))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_moe_gmm_plan_matches_the_kernel(cuda):
+    """``gmm_plan``'s shared-memory figure is the kernel's own, and every
+    plan of a serving shape launches."""
+    from repro_torch.kernels.moe_gmm import _entry, gmm_plan
+    smem = _entry("moe_gmm_tc_smem")
+    props = torch.cuda.get_device_properties(0)
+    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    for C in (1, 6, 25, 40, 65, 160, 256, 300, 1000):
+        plan = gmm_plan(64, C, 2048, 1024, torch.bfloat16)
+        assert smem(plan.tiles, plan.stages) == plan.smem_bytes <= limit
