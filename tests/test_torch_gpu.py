@@ -859,3 +859,19 @@ def test_cuda_moe_gmm_plan_matches_the_kernel(cuda):
     for C in (1, 6, 25, 40, 65, 160, 256, 300, 1000):
         plan = gmm_plan(64, C, 2048, 1024, torch.bfloat16)
         assert smem(plan.tiles, plan.stages) == plan.smem_bytes <= limit
+
+
+@pytest.mark.gpu
+def test_cuda_moe_gmm_tc_repeated_rows(cuda):
+    """bf16: a view whose rows repeat (row stride 0; TMA takes no zero
+    stride, so the wrapper copies it) gives its copy's and the plain
+    version's result."""
+    from repro_torch.kernels.moe_gmm import gmm_plain
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x, w = _gmm_inputs(gen, 4, 1, 64, 136, torch.bfloat16)
+    rep = x.expand(4, 9, 64)
+    assert rep.stride(1) == 0
+    got = ops.moe_gmm(rep, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.moe_gmm(rep.contiguous(), w))
+    assert _err(got, gmm_plain(rep, w)) <= TOL["bfloat16"]
