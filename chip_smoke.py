@@ -485,15 +485,17 @@ def _device_ms(fn, iters=40, part=None):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    # each kernel's mean time times its launches per call: a trace that
-    # lost some events (seen on the card) does not shrink the figure
-    ev = [e for e in prof.key_averages() if e.count]
-    per_call = {e.key: (_device_us(e) or 0) / e.count
-                * max(1, round(e.count / iters)) for e in ev}
-    total = sum(per_call.values()) / 1e3
+    ev = prof.key_averages()
+    # every call launches each of its kernels as often: a count that is
+    # not a multiple of the calls means the trace lost events
+    lost = {e.key: e.count for e in ev
+            if (_device_us(e) or 0) > 0 and e.count % iters}
+    assert not lost, ("device trace lost events", iters, lost)
+    total = sum(_device_us(e) or 0 for e in ev) / iters / 1e3
     if part is None:
         return total
-    return total, sum(t for k, t in per_call.items() if part in k) / 1e3
+    return total, sum(_device_us(e) or 0 for e in ev
+                      if part in e.key) / iters / 1e3
 
 
 def _log_timing(name, r):
@@ -2405,7 +2407,9 @@ def main() -> int:
     worst = phase_parity()
     worst.update(phase_parity_paged())
     worst.update(phase_parity_ssm())
+    t_moe = time.perf_counter()
     worst.update(phase_parity_moe())
+    log(f"[time] parity_moe took {time.perf_counter() - t_moe:.1f} s")
     worst.update(phase_parity_int8())
     worst.update(phase_parity_flash())
     for k, e in phase_parity_window_decode().items():
@@ -2416,7 +2420,9 @@ def main() -> int:
     timing = phase_timing()
     timing.update(phase_timing_paged())
     timing.update(phase_timing_ssm())
+    t_moe = time.perf_counter()
     timing.update(phase_timing_moe())
+    log(f"[time] timing_moe took {time.perf_counter() - t_moe:.1f} s")
     timing.update(phase_timing_int8())
     timing.update(phase_timing_flash())
     free_device_memory()

@@ -35,8 +35,9 @@
 //     128-byte swizzle: one box of [64, rows]) and the weight tile [64 of
 //     d, 128 of f] as two boxes of [64, 64]; x is A (K-major), the weight
 //     half is B read MN-major through wgmma's transpose bit, so neither
-//     is copied or transposed.  4 stages (kernels/gmm_sweep.py: more
-//     read the weights no faster on an H100, 8 slower at C <= 64);
+//     is copied or transposed.  3 stages for one C-tile, 4 for more
+//     (`tc_stages` in moe_gmm.py: the fastest on an H100 at OLMoE's
+//     widths; more stages read the weights no faster);
 //   * `wgmma.mma_async` m64n64k16, bf16 in, f32 out: each C-tile's
 //     product over a stage (4 k16 steps) starts from zero and is then
 //     added to an f32 accumulator held in registers (32 a C-tile), one

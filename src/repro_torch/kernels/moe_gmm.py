@@ -14,14 +14,15 @@ each weight tile it loads, so each weight byte is read from device memory
 once per call up to C = 256 rows; persistent blocks, one an SM, take the
 work tiles in turn.  f32 runs on the CUDA cores, whose exact f32 the identity
 checks need.  ``gmm_plan`` says, from the shapes alone, which of the two
-runs and with what tiles; ``gmm_cuda`` passes that plan to the kernel.
+runs and, for bf16, with what tiles and stages; ``gmm_cuda`` passes that
+plan to the kernel.
 """
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,10 +34,7 @@ TC_MAX_TILES = 4      # C-tiles of a row group: 256 rows a pass over w
 TC_N = 128            # f columns of a block: 64 per consumer warpgroup
 TC_K = 64             # d per stage: one 128-byte swizzled row of bf16
 TC_EPI_PITCH = 144    # bytes between the rows of an epilogue tile
-TC_STAGES = 4         # d tiles in flight (kernels/gmm_sweep.py times 2-8)
 SMEM_MAX = 232_448    # dynamic shared memory a block may opt in to
-# the CUDA-core kernel's (`gmm_kernel`, as its `dispatch` picks them)
-CORE_K, CORE_STAGES, CORE_PAD = 32, 3, 4
 
 _ARGTYPES = {
     "moe_gmm": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
@@ -51,26 +49,28 @@ _FNS = {}
 
 @dataclass(frozen=True)
 class GmmPlan:
-    """How one call is cut into work tiles: a tile is ``n_tile`` columns
-    of one expert's output and ``group_rows`` rows of it per pass, in
-    C-tiles of ``tile_rows``; its block walks ``passes`` row groups in
+    """How one bf16 call is cut into work tiles: a tile is ``n_tile``
+    columns of one expert's output and ``group_rows`` rows of it per pass,
+    in C-tiles of ``tile_rows``; its block walks ``passes`` row groups in
     turn, reading its weights once per pass.  ``grid`` counts the tiles
-    (f tiles, row blocks, experts): the CUDA-core kernel launches one
-    block per tile, the tensor-core kernel min(tiles, SMs) persistent
-    blocks that take them in turn.  A stage carries ``k_tile`` of d."""
+    (f tiles, 1, experts), which min(tiles, SMs) persistent blocks take
+    in turn.  A stage carries ``k_tile`` of d.  An f32 plan says only that
+    the CUDA-core kernel runs: its entry picks its own tile."""
     tensor_cores: bool
-    tile_rows: int
-    group_rows: int
-    passes: int
-    n_tile: int
-    k_tile: int
-    stages: int
-    smem_bytes: int
-    grid: Tuple[int, int, int]
+    tile_rows: Optional[int] = None
+    group_rows: Optional[int] = None
+    passes: Optional[int] = None
+    n_tile: Optional[int] = None
+    k_tile: Optional[int] = None
+    stages: Optional[int] = None
+    smem_bytes: Optional[int] = None
+    grid: Optional[Tuple[int, int, int]] = None
 
     @property
-    def tiles(self) -> int:
+    def tiles(self) -> Optional[int]:
         """C-tiles in a row group."""
+        if not self.tensor_cores:
+            return None
         return self.group_rows // self.tile_rows
 
 
@@ -87,29 +87,31 @@ def tc_smem_bytes(tiles: int, stages: int) -> int:
             + 2 * TC_ROWS * TC_EPI_PITCH + 16 * stages)
 
 
+def tc_stages(tiles: int) -> int:
+    """d tiles in flight: 3 for one C-tile (C <= 64), 4 for more.  On an
+    H100 at OLMoE's widths one C-tile ran 1-3% faster with 3 stages than
+    with 4 at every C from 1 to 40, up and down; at C 160 and 256 4 stages
+    were the fastest or within 1% of it (PERF.md §6 gives the times)."""
+    return 3 if tiles == 1 else 4
+
+
 @lru_cache(maxsize=1024)
 def gmm_plan(E: int, C: int, d: int, f: int, dtype) -> GmmPlan:
-    """The tile plan of one call, from its shapes and type alone (never a
+    """The plan of one call, from its shapes and type alone (never a
     tensor).  bf16: the tensor-core kernel, C-tiles of 64 rows, up to 4 in
     a row group (above 256 rows the passes share the C-tiles evenly), and
-    4 stages whatever the tiles (on an H100 more stages read the weights
-    no faster, and 8 of them slower at C <= 64: ``kernels/gmm_sweep.py``).
-    f32: the CUDA-core kernel's tile as its ``dispatch`` picks it (8, 32
-    or 64 rows)."""
-    if dtype == torch.bfloat16:
-        n_tiles = max(1, _cdiv(C, TC_ROWS))
-        tiles = _cdiv(n_tiles, _cdiv(n_tiles, TC_MAX_TILES))
-        rows = tiles * TC_ROWS
-        # the kernel walks ceil(C / rows) row groups
-        return GmmPlan(True, TC_ROWS, rows, max(1, _cdiv(C, rows)), TC_N, TC_K,
-                       TC_STAGES, tc_smem_bytes(tiles, TC_STAGES),
-                       (_cdiv(f, TC_N), 1, E))
-    if dtype != torch.float32:
+    ``tc_stages`` of them in flight.  f32: the CUDA-core kernel."""
+    if dtype == torch.float32:
+        return GmmPlan(False)
+    if dtype != torch.bfloat16:
         raise TypeError(f"gmm_plan: f32 or bf16, got {dtype}")
-    rows, n = (8, 128) if C <= 8 else (32, 64) if C <= 32 else (64, 64)
-    smem = CORE_STAGES * (rows * (CORE_K + CORE_PAD) + CORE_K * n) * 4
-    return GmmPlan(False, rows, rows, 1, n, CORE_K, CORE_STAGES, smem,
-                   (_cdiv(f, n), _cdiv(C, rows), E))
+    n_tiles = max(1, _cdiv(C, TC_ROWS))
+    tiles = _cdiv(n_tiles, _cdiv(n_tiles, TC_MAX_TILES))
+    rows, stages = tiles * TC_ROWS, tc_stages(tiles)
+    # the kernel walks ceil(C / rows) row groups
+    return GmmPlan(True, TC_ROWS, rows, max(1, _cdiv(C, rows)), TC_N, TC_K,
+                   stages, tc_smem_bytes(tiles, stages),
+                   (_cdiv(f, TC_N), 1, E))
 
 
 def gmm_plain(x, w):
@@ -128,16 +130,16 @@ def _entry(name: str):
     return fn
 
 
-def gmm_cuda(x, w, plan=None):
-    """Launch the CUDA kernel that ``gmm_plan`` picks (or ``plan``, which
-    ``kernels/gmm_sweep.py`` varies) on the current stream.  The caller
-    (``ops.moe_gmm``) has checked devices, types, shapes, strides and
-    alignment; the strides of size-1 dims are never read.  TMA takes no
-    zero stride, so for bf16 an operand whose rows repeat (a row stride
-    of 0) is copied first; an expert stride of 0 is read in place."""
+def gmm_cuda(x, w):
+    """Launch the CUDA kernel that ``gmm_plan`` picks on the current
+    stream.  The caller (``ops.moe_gmm``) has checked devices, types,
+    shapes, strides and alignment; the strides of size-1 dims are never
+    read.  TMA takes no zero stride, so for bf16 an operand whose rows
+    repeat (a row stride of 0) is copied first; an expert stride of 0 is
+    read in place."""
     E, C, d = x.shape
     f = w.shape[2]
-    plan = plan or gmm_plan(E, C, d, f, x.dtype)
+    plan = gmm_plan(E, C, d, f, x.dtype)
     out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if plan.tensor_cores:

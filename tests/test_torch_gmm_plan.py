@@ -2,11 +2,12 @@
 
 ``gmm_plan`` (``repro_torch/kernels/moe_gmm.py``) decides from the shapes
 alone which kernel of ``csrc/moe_gmm.cu`` a call runs (bf16: the
-tensor-core kernel; f32: the CUDA-core one) and how it cuts the output
-into blocks and tiles.  Here the plan is checked at every serving shape
-of OLMoE-1B-7B, at the JAX kernel test's shapes and at the Mixtral-8x22B
-and Jamba widths: every output row and column falls in exactly one tile,
-and the tiles fit what ``wgmma`` and the SM take.  The kernels run on the
+tensor-core kernel; f32: the CUDA-core one, which picks its own tile) and
+how the tensor-core kernel cuts the output into tiles.  Here the bf16 plan
+is checked at every serving shape of OLMoE-1B-7B, at the JAX kernel
+test's shapes and at the Mixtral-8x22B and Jamba widths: every output row
+and column falls in exactly one tile, and the tiles fit what ``wgmma`` and
+the SM take.  The kernels run on the
 card only (tests/test_torch_gpu.py); on the CPU ``ops.moe_gmm`` is the
 plain version, held here against the JAX ``ops.moe_gmm`` (Pallas,
 interpret mode) at the shapes of a row group and of two.
@@ -24,7 +25,8 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.configs.base import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.moe_gmm import (  # noqa: E402
-    SMEM_MAX, TC_MAX_TILES, TC_ROWS, TC_STAGES, gmm_plan, tc_smem_bytes)
+    SMEM_MAX, TC_MAX_TILES, TC_ROWS, GmmPlan, gmm_plan, tc_smem_bytes,
+    tc_stages)
 
 GMM_TOL = {"float32": dict(rtol=3e-5, atol=3e-5),
            "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -48,7 +50,6 @@ SHAPES = ([(E, C, d, f) for E, d, f in OLMOE for C in SERVING_C]
              for cfg in (get_config(name), get_smoke_config(name))
              for E, d, f in _moe_shapes(cfg) for C in (6, 160)]
           + [(3, 300, 24, 8), (2, 600, 136, 200), (1, 5, 64, 72)])
-DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _row_blocks(plan, C):
@@ -72,30 +73,33 @@ def _check_cover(plan, C, f):
     assert (cols == 1).all(), cols
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("E,C,d,f", SHAPES)
-def test_plan_tiles_cover_the_output_once(E, C, d, f, dtype):
-    plan = gmm_plan(E, C, d, f, dtype)
+def test_plan_tiles_cover_the_output_once(E, C, d, f):
+    plan = gmm_plan(E, C, d, f, torch.bfloat16)
     _check_cover(plan, C, f)
     assert plan.grid[2] == E
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("E,C,d,f", SHAPES)
-def test_plan_tiles_fit_the_card(E, C, d, f, dtype):
+def test_plan_tiles_fit_the_card(E, C, d, f):
     """wgmma's N is a multiple of 8 up to 256 and its K a multiple of 16;
-    the shared memory fits a block; the plan runs the tensor cores for
-    bf16 and never for f32."""
-    plan = gmm_plan(E, C, d, f, dtype)
+    the shared memory fits a block; 3 stages for one C-tile, 4 for more."""
+    plan = gmm_plan(E, C, d, f, torch.bfloat16)
+    assert plan.tensor_cores
     assert plan.n_tile % 8 == 0 and 0 < plan.n_tile <= 256
     assert plan.k_tile % 16 == 0
     assert plan.smem_bytes <= SMEM_MAX
-    assert plan.tensor_cores == (dtype == torch.bfloat16)
-    if plan.tensor_cores:
-        assert plan.tile_rows == TC_ROWS
-        assert 1 <= plan.tiles <= TC_MAX_TILES and plan.grid[1] == 1
-        assert plan.smem_bytes == tc_smem_bytes(plan.tiles, plan.stages)
-        assert plan.stages == TC_STAGES
+    assert plan.tile_rows == TC_ROWS
+    assert 1 <= plan.tiles <= TC_MAX_TILES and plan.grid[1] == 1
+    assert plan.smem_bytes == tc_smem_bytes(plan.tiles, plan.stages)
+    assert plan.stages == tc_stages(plan.tiles) == (3 if C <= TC_ROWS else 4)
+
+
+@pytest.mark.parametrize("E,C,d,f", SHAPES)
+def test_plan_f32_runs_the_cuda_cores(E, C, d, f):
+    """f32 never takes the tensor cores (wgmma has no exact f32); its plan
+    holds no tile, since the CUDA-core entry picks its own."""
+    assert gmm_plan(E, C, d, f, torch.float32) == GmmPlan(False)
 
 
 @pytest.mark.parametrize("E,d,f", OLMOE)
@@ -113,7 +117,7 @@ def test_plan_depends_on_shapes_only():
     """Equal shapes give equal plans, whatever the tensors' strides: the
     plan takes no tensor, so a stride-0 view and its copy share one."""
     E, C, d, f = OLMOE[0][0], 160, OLMOE[0][1], OLMOE[0][2]
-    for dtype in DTYPES:
+    for dtype in (torch.bfloat16, torch.float32):
         a, b = gmm_plan(E, C, d, f, dtype), gmm_plan(E, C, d, f, dtype)
         assert a == b and hash(a) == hash(b)
     x2d = torch.zeros(C, 16, dtype=torch.bfloat16)
@@ -127,11 +131,9 @@ def test_plan_depends_on_shapes_only():
 @settings(max_examples=60, deadline=None)
 @given(E=st.integers(1, 70), C=st.integers(1, 1100),
        d=st.integers(0, 40).map(lambda k: 8 * k),
-       f=st.integers(1, 40).map(lambda k: 8 * k),
-       bf16=st.booleans())
-def test_plan_covers_any_shape(E, C, d, f, bf16):
-    dtype = torch.bfloat16 if bf16 else torch.float32
-    plan = gmm_plan(E, C, d, f, dtype)
+       f=st.integers(1, 40).map(lambda k: 8 * k))
+def test_plan_covers_any_shape(E, C, d, f):
+    plan = gmm_plan(E, C, d, f, torch.bfloat16)
     _check_cover(plan, C, f)
     assert plan.smem_bytes <= SMEM_MAX
 
