@@ -458,6 +458,10 @@ def phase_parity_paged():
     return worst
 
 
+# device traces taken by _device_ms, and those thrown away for lost events
+TRACES = {"taken": 0, "lost": 0}
+
+
 def _time_ms(fn, iters=50, warmup=5):
     for _ in range(warmup):
         fn()
@@ -472,24 +476,36 @@ def _time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters=40, part=None):
+def _device_ms(fn, iters=40, part=None, traces=3):
     """Device time per call of every kernel fn launches (torch.profiler):
     the kernels' own time, where _time_ms also sees the host's launch
     rate.  ``part``: also return the time of the kernels whose name holds
-    that word."""
+    that word.  The device trace can drop launches, more often when the
+    calls start as the tracer does: they begin 20 ms after it, and a trace
+    that lost events is thrown away and taken again, at most ``traces``
+    times, so that no sum is read from an incomplete trace."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ev = prof.key_averages()
-    # every call launches each of its kernels as often: a count that is
-    # not a multiple of the calls means the trace lost events
-    lost = {e.key: e.count for e in ev
-            if (_device_us(e) or 0) > 0 and e.count % iters}
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        # every call launches each of its kernels as often: a count that
+        # is not a multiple of the calls means the trace lost events
+        lost = {e.key: e.count for e in ev
+                if (_device_us(e) or 0) > 0 and e.count % iters}
+        TRACES["taken"] += 1
+        if not lost:
+            break
+        TRACES["lost"] += 1
+        log(f"[timing] device trace lost events ({iters} calls): {lost}; "
+            f"trace thrown away")
     assert not lost, ("device trace lost events", iters, lost)
     total = sum(_device_us(e) or 0 for e in ev) / iters / 1e3
     if part is None:
@@ -2426,6 +2442,8 @@ def main() -> int:
     timing.update(phase_timing_int8())
     timing.update(phase_timing_flash())
     free_device_memory()
+    log(f"[timing] device traces: {TRACES['taken']} taken, "
+        f"{TRACES['lost']} thrown away for lost events")
     stamp("timing")
     phase_identity(paged=False)
     launches, eng = phase_slice(paged=False)
