@@ -119,12 +119,17 @@ later turn, ``forward_decode_megastep`` K=8 over the lanes):
              attention parity shapes (int8 values and scales from
              ``quantize_kv``, a strided view of both; paged: page 64,
              shuffled shared tables, also against the slab entries on the
-             gathered rows), f32 within 1e-4, bf16 within 2e-2; timed at
-             the attention timing shapes beside the plain version, one
-             SDPA call on K/V dequantised beforehand (the dequantisation
-             is not timed; no single PyTorch call reads int8, so the JSON
-             line's library_ms is null) and the bound from int8 values
-             and scales.
+             gathered rows), prefill at every parity chunk length
+             (spec-verify 1, 2 and 8 included), f32 within 1e-4 (the
+             CUDA-core body), bf16 within 2e-2 (the prefill entries: the
+             tensor-core body on int8 tiles); timed at the attention
+             timing shapes beside the plain version, one SDPA call on K/V
+             dequantised beforehand (the dequantisation is not timed; no
+             single PyTorch call reads int8, so the JSON line's
+             library_ms is null) and the bound from int8 values and
+             scales; the prefill entries also by profiler device time,
+             with their split count, at the cold chunk and at the 4 x 64
+             resume batch.
 20-21. identity_int8 and its paged twin — float32 Qwen2.5-3B widths cut
              to 4 layers, 3 react sessions at token scale 0.25:
              ``greedy_drive`` on the card and on the CPU (plain versions) in lock-step
@@ -1012,7 +1017,7 @@ def phase_parity_int8():
                       _max_err(ops.flash_decode_quant(q, *kv, L),
                                decode_attention_quant_plain(q, *kv, L)),
                       dtype, f"{dt} {what} lens={lens}")
-                for Sq in (16, 56, 160, 320):
+                for Sq in PARITY_SQ:
                     for off in (0, 3000):
                         qo = _i32([off, off + 17, off // 2])
                         ln, si = qo + Sq, _i32([5, 0, 3])
@@ -1066,13 +1071,15 @@ def int8_bytes(keys: int, Hk: int, hd: int, es: int) -> int:
 def phase_timing_int8():
     """The int8 entries at the kernel table's shapes (bf16 model,
     Qwen2.5-3B heads, 6 slots of 8192 rows; paged: page 64, shuffled
-    tables): the kernel, its plain version and one SDPA call on K/V
-    dequantised to bf16 beforehand (the dequantisation is not timed).
-    No single PyTorch call reads int8, so ``library_ms`` is None and the
-    SDPA time is kept apart as ``sdpa_dequant_ms``.  The bound counts
-    int8 values and scales read once, q read and the output written
-    once, the index words, and the attention's flops plus one
-    dequantising multiply per K and V element."""
+    tables): the kernel (CUDA events; the prefill entries also their
+    profiler device time and split count), its plain version and one SDPA
+    call on K/V dequantised to bf16 beforehand (the dequantisation is not
+    timed).  No single PyTorch call reads int8, so ``library_ms`` is None
+    and the SDPA time is kept apart as ``sdpa_dequant_ms``.  The bound
+    counts int8 values and scales read once, q read and the output
+    written once, the index words, and the attention's flops plus one
+    dequantising multiply per K and V element.  The prefill entries are
+    also timed at the slice's 4 x 64 resume batch."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (
@@ -1080,7 +1087,8 @@ def phase_timing_int8():
         decode_attention_quant_cuda, decode_attention_quant_plain,
         paged_gather)
     from repro_torch.kernels.prefill_attention import (
-        prefill_attention_paged_quant_plain, prefill_attention_quant_plain)
+        _dense_splits, prefill_attention_paged_quant_plain,
+        prefill_attention_quant_plain)
     gen = torch.Generator(device="cuda").manual_seed(9)
     rng = np.random.default_rng(9)
     dtype, es = torch.bfloat16, 2
@@ -1092,6 +1100,12 @@ def phase_timing_int8():
     def sdpa_ms(qx, kx, vx, m):
         return _time_ms(lambda: F.scaled_dot_product_attention(
             qx, kx, vx, attn_mask=m, enable_gqa=True))
+
+    def prefill_timing(fn, plain, qx, cap):
+        """Events, device time and split count of a prefill entry."""
+        return dict(ms=_time_ms(fn), device_ms=_device_ms(fn),
+                    plain_ms=_time_ms(plain),
+                    splits=_dense_splits(qx, Hk, cap))
     res = {}
     lens = [1, 37, 1000, 3500, 8000, 5000]
     n_keys, Lmax = sum(lens), max(lens)
@@ -1112,6 +1126,13 @@ def phase_timing_int8():
     pmask = (torch.arange(Lk, device="cuda")[None, :]
              <= q_pos[:, None])[None, None]
     qqt = qq.transpose(1, 2)
+    # the slice's resume batch: 4 rows of 64 tokens deep in context
+    qr = _rand(gen, (4, 64, H, hd), dtype)
+    qro, lro = _i32(RESUME_OFFS), _i32([o + 64 for o in RESUME_OFFS])
+    keys_r = sum(o + 64 for o in RESUME_OFFS)
+    res_flops = (4 * sum(o + i + 1 for o in RESUME_OFFS for i in range(64))
+                 * H * hd + 2 * keys_r * Hk * hd)
+    res_bytes = int8_bytes(keys_r, Hk, hd, es) + 2 * 4 * 64 * H * hd * es
 
     # slab
     kq, ks = _quant_rand(gen, (B, S, Hk, hd), dtype)
@@ -1133,27 +1154,27 @@ def phase_timing_int8():
     vt = deq(vq[2:3, :Lk], vs[2:3, :Lk]).transpose(1, 2)
     bound, by = _bound_ms(pre_flops, pre_bytes, dtype)
     res["flash_prefill_quant"] = dict(
-        ms=_time_ms(lambda: ops.flash_prefill_quant(qq, *kv, qo, ln,
-                                                    slot_idx=si)),
-        plain_ms=_time_ms(lambda: prefill_attention_quant_plain(
-            qq, *kv, qo, ln, slot_idx=si)),
+        **prefill_timing(
+            lambda: ops.flash_prefill_quant(qq, *kv, qo, ln, slot_idx=si),
+            lambda: prefill_attention_quant_plain(qq, *kv, qo, ln,
+                                                  slot_idx=si), qq, S),
         library_ms=None, sdpa_dequant_ms=sdpa_ms(qqt, kt, vt, pmask),
         bound_ms=bound, bound_by=by,
         shape=f"M=1 Sq={Sq} offset={off} H/Hk/hd={H}/{Hk}/{hd} G={G} "
               f"int8 K/V, bf16")
-    # the slice's resume batch: 4 rows of 64 tokens deep in context
-    offs = [3100, 3600, 4200, 2900]
-    qr = _rand(gen, (4, 64, H, hd), dtype)
-    qro, lro = _i32(offs), _i32([o + 64 for o in offs])
-    ms = _time_ms(lambda: ops.flash_prefill_quant(qr, *kv, qro, lro,
-                                                  slot_idx=_i32([0, 1, 2, 3])))
-    rb, rby = _bound_ms(
-        4 * sum(o + i + 1 for o in offs for i in range(64)) * H * hd
-        + 2 * sum(o + 64 for o in offs) * Hk * hd,
-        int8_bytes(sum(o + 64 for o in offs), Hk, hd, es)
-        + 2 * 4 * 64 * H * hd * es, dtype)
-    log(f"[timing_int8] flash_prefill_quant resume M=4 Sq=64 offsets={offs}: "
-        f"kernel_ms={ms:.4f} bound_ms={rb:.5f} ({rby})")
+    sir = _i32([0, 1, 2, 3])
+    bound, by = _bound_ms(res_flops, res_bytes + 12 * 4, dtype)
+    res["flash_prefill_quant@resume"] = dict(
+        **prefill_timing(
+            lambda: ops.flash_prefill_quant(qr, *kv, qro, lro, slot_idx=sir),
+            lambda: prefill_attention_quant_plain(qr, *kv, qro, lro,
+                                                  slot_idx=sir), qr, S),
+        library_ms=None,
+        sdpa_dequant_ms=_time_ms(resume_sdpa(qr, deq(kq[:4], ks[:4]),
+                                             deq(vq[:4], vs[:4]))),
+        bound_ms=bound, bound_by=by,
+        shape=f"resume M=4 Sq=64 offsets={RESUME_OFFS} H/Hk/hd={H}/{Hk}/"
+              f"{hd} G={G} int8 K/V, bf16")
     del kv, kq, ks, vq, vs, kt, vt
 
     # paged: every row maps its pages from a shuffled arena
@@ -1181,17 +1202,35 @@ def phase_timing_int8():
     vt = deq(lin[2][2:3, :Lk], lin[3][2:3, :Lk]).transpose(1, 2)
     bound, by = _bound_ms(pre_flops, pre_bytes + 4 * -(-Lk // PAGE), dtype)
     res["flash_prefill_paged_quant"] = dict(
-        ms=_time_ms(lambda: ops.flash_prefill_paged_quant(qq, *arenas, qo,
-                                                          ln, bt_1)),
-        plain_ms=_time_ms(lambda: prefill_attention_paged_quant_plain(
-            qq, *arenas, qo, ln, bt_1)),
+        **prefill_timing(
+            lambda: ops.flash_prefill_paged_quant(qq, *arenas, qo, ln, bt_1),
+            lambda: prefill_attention_paged_quant_plain(
+                qq, *arenas, qo, ln, bt_1), qq, pmax * PAGE),
         library_ms=None, sdpa_dequant_ms=sdpa_ms(qqt, kt, vt, pmask),
         bound_ms=bound, bound_by=by,
         shape=f"M=1 Sq={Sq} offset={off} H/Hk/hd={H}/{Hk}/{hd} G={G} "
               f"page={PAGE} int8 K/V, bf16")
+    bt_4 = bt[:4].contiguous()
+    bound, by = _bound_ms(
+        res_flops, res_bytes + 8 * 4 + 4 * sum(-(-(o + 64) // PAGE)
+                                               for o in RESUME_OFFS), dtype)
+    res["flash_prefill_paged_quant@resume"] = dict(
+        **prefill_timing(
+            lambda: ops.flash_prefill_paged_quant(qr, *arenas, qro, lro,
+                                                  bt_4),
+            lambda: prefill_attention_paged_quant_plain(
+                qr, *arenas, qro, lro, bt_4), qr, pmax * PAGE),
+        library_ms=None,
+        sdpa_dequant_ms=_time_ms(resume_sdpa(
+            qr, deq(lin[0][:4], lin[1][:4]), deq(lin[2][:4], lin[3][:4]))),
+        bound_ms=bound, bound_by=by,
+        shape=f"resume M=4 Sq=64 offsets={RESUME_OFFS} H/Hk/hd={H}/{Hk}/"
+              f"{hd} G={G} page={PAGE} int8 K/V, bf16")
     for name, r in res.items():
-        log(f"[timing_int8] {name} {r['shape']}: kernel_ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} library_ms=none (no single "
+        dev = (f" device_ms={r['device_ms']:.4f} splits={r['splits']}"
+               if "splits" in r else "")
+        log(f"[timing_int8] {name} {r['shape']}: kernel_ms={r['ms']:.4f}"
+            f"{dev} plain_ms={r['plain_ms']:.4f} library_ms=none (no single "
             f"PyTorch call reads int8) sdpa_on_dequantised_kv_ms="
             f"{r['sdpa_dequant_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")

@@ -27,8 +27,12 @@
 // bytes at 3.35 TB/s), and the 4 x 64-token resume batch 7.3 GFLOP
 // against 16.5 MB (0.0074 vs 0.0049 ms): both are bound by operations.
 //
-// bf16 (entries `flash_prefill`, `flash_prefill_paged`;
-// `prefill_tc_kernel` below): the products run on the tensor cores.
+// Which body runs which entry, by q's type:
+//   entry                          bf16 q                       f32 q
+//   flash_prefill[_paged]          prefill_tc_kernel (bf16)     flash_prefill_kernel
+//   flash_prefill[_paged]_quant    prefill_tc_kernel (int8)     flash_prefill_kernel (int8)
+//
+// bf16 q (`prefill_tc_kernel`): the products run on the tensor cores.
 //   * one block per (query tile, KV head, row m, split) and one
 //     warpgroup per block; its 64-row M dimension folds the G query
 //     heads of the KV head and qpt = 64 / G query positions, which is
@@ -79,9 +83,52 @@
 // This replaces, for bf16, the TPU kernels `flash_prefill_bhsd` and
 // `flash_prefill_paged_bhsd`.
 //
-// f32 and int8 (`flash_prefill_kernel`): the products run on the CUDA cores in
-// f32 (wgmma has no exact f32, and TF32 would break the f32 identity
-// checks, which hold engine streams to the oracle within 1e-4):
+// int8 cache with bf16 q (the `_quant` entries; the same kernel, kQuant):
+// every int8 value is exactly a bf16 value, and a key is f32(int8) *
+// f32(scale) with one scale per (position, head), so the scales leave the
+// sums: q . (Kq[j] ks[j]) = (q . Kq[j]) ks[j] and sum_j P[j] vs[j] Vq[j] =
+// sum_j (P[j] vs[j]) Vq[j].  The body above runs on the int8 values with
+// only its loads changed (this replaces `flash_prefill_quant_bhsd` and
+// `flash_prefill_paged_quant_bhsd` for bf16):
+//   * the int8 K and V tiles arrive by TMA: maps over the int8 value
+//     leaves, boxes of 64 columns (64 bytes, unswizzled), into a ring of
+//     two stages of 16 KB at hd 128, half a bf16 stage;
+//   * the scales [.., Hk, 1] have a position stride of 2 Hk bytes and a
+//     one-element box would be 2 bytes, both under TMA's 16-byte minimum:
+//     thread t loads the scale of key t (K) or t - 64 (V) of each tile
+//     with a plain load one tile ahead (paged: its table entry two tiles
+//     ahead, so the two loads never wait on each other) and stores it to
+//     shared memory as f32 with the tile;
+//   * after the tile's mbarrier wait the warpgroup converts it into one
+//     bf16 K/V pair in the 128-byte-swizzled layout the descriptors read
+//     (chunk c of row r at c ^ (r % 8), as Q), exactly and with no
+//     conversion instruction (byte permutes and a subtract, as
+//     Vec16<int8_t>); a quarter warp reads 128 contiguous int8 bytes and
+//     writes 8 distinct swizzled chunks, so neither side meets a bank
+//     conflict.  Keys at or past lengths[m] convert to 0 and get scale 0,
+//     so a NaN scale there (fresh memory) cannot reach the output.  Then
+//     `fence.proxy.async` (generic stores are not visible to wgmma's async
+//     proxy without it) and a barrier, and the int8 stage goes straight
+//     back to TMA for the tile after next;
+//   * S's column j is multiplied by ks[j] (f32) before the mask and the
+//     softmax, and P's column j by vs[j] before P is packed to bf16 for
+//     P V; the row sum l sums the unscaled P.  The only rounding the bf16
+//     body lacks is bf16(P vs) in place of bf16(P);
+//   * the same split plan and merge as the bf16 entries;
+//   * occupancy as for bf16: Q 16 KB, the bf16 pair 32 KB, two int8
+//     stages 32 KB and the scales (81 KB at hd 128) keep two blocks on an
+//     SM.  The block's own warpgroup converts, between the wait and the
+//     first wgmma, and the other block on the SM keeps the tensor cores
+//     busy meanwhile; a converter warpgroup would add a third of the
+//     block's registers and a hand-off barrier per tile for work of about
+//     2.5 instructions a value.  At hd 64 an int8 row is 64 bytes, so the
+//     unswizzled staging is the same at both head dims.
+//
+// f32 q (`flash_prefill_kernel`, all four entries): the products run on
+// the CUDA cores in f32 (wgmma has no exact f32, and TF32 would break the
+// f32 identity checks, which hold engine streams to the oracle within
+// 1e-4, and the int8 ones, which hold card logits to the CPU's within
+// 1e-3):
 //   * the same block of 64 folded rows per (query tile, KV head, row m),
 //     over key tiles of 32;
 //   * both paths run the key loop over the live tiles [first, last]
@@ -94,15 +141,12 @@
 //     gathering whole slot stripes;
 //   * tiles move as 16-byte vectors, all of a tile's loads in flight
 //     before the first is stored to shared memory (as f32).
-// int8 cache (the `_quant` entries): the same body with int8 values C
-// and scales [.., Hk, 1] in q's type.  Each thread's 16-byte vector holds
-// 16 values of one key row, so it reads that row's scale (a scalar
-// through the scale leaf's strides: the leaf's last dim is 1, so its rows
-// are not 16-byte vectors) with the values, and the row is dequantised
-// as f32(int8) * f32(scale) while it is stored to shared memory, as the
-// TPU kernel does per tile.  The cache bytes halve against bf16 (plus 2
-// scale bytes per row and head); the products and the softmax are those
-// of the bf16 path, so a long chunk stays bound by operations.
+// int8 cache with f32 q: the same body with int8 values C and f32 scales
+// [.., Hk, 1].  Each thread's 16-byte vector holds 16 values of one key
+// row, so it reads that row's scale (a scalar through the scale leaf's
+// strides: the leaf's last dim is 1, so its rows are not 16-byte vectors)
+// with the values, and the row is dequantised as f32(int8) * f32(scale)
+// while it is stored to shared memory, as the TPU kernel does per tile.
 // Paged layout: the same body with another row addressing (the `Rows`
 // functor): logical row pos of row m lives at physical page
 // bt[m, pos / page], row pos % page, of the [P_phys, page, Hk, hd]
@@ -133,20 +177,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// One 16-byte vector of T: 8 bf16 or 4 f32 elements, unpacked to floats.
+// One 16-byte vector of C, unpacked to floats: 4 f32 or 16 int8 values.
 template <typename T> struct Vec16;
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void unpack(const uint4& r, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(h[i]);
-      f[2 * i] = x.x;
-      f[2 * i + 1] = x.y;
-    }
-  }
-};
 template <> struct Vec16<float> {
   static constexpr int N = 4;
   __device__ static void unpack(const uint4& r, float* f) {
@@ -274,9 +306,9 @@ flash_prefill_kernel(const T* __restrict__ q, const C* __restrict__ k,
   const T* ksb = kQuant ? ks + h * ks_sh + row0 * ks_sp : nullptr;
   const T* vsb = kQuant ? vs + h * vs_sh + row0 * vs_sp : nullptr;
   // vector u of thread t holds tile elements (t + u * kThreads) * kV ...
-  // (kV values of one key row: 4 f32, 8 bf16 or 16 int8, so kVecs is 8,
-  // 4 or 2 at hd 128 and half that at hd 64); paged: pg[u] is its page in
-  // the tile about to be loaded
+  // (kV values of one key row: 4 f32 or 16 int8, so kVecs is 8 or 2 at
+  // hd 128 and half that at hd 64); paged: pg[u] is its page in the tile
+  // about to be loaded
   constexpr int kV = Vec16<C>::N, kVecs = kBK * HD / kV / kThreads;
   static_assert(kVecs >= 1 && HD % kV == 0, "a vector stays in one key row");
   int pg[kVecs];
@@ -465,9 +497,9 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* k
 
 // st: q (sm, ss, sh), k (sp, ss, sh), v (sp, ss, sh), out (sm, ss, sh),
 // ks (sp, ss, sh), vs (sp, ss, sh), in elements (sp: the slab row stride,
-// or the page stride).  kQuant: int8 values with scales ks/vs of q's type
-// (f32 or bf16); else ks/vs are unused and the values are f32 (bf16
-// values run on the tensor cores: `dispatch_dense`).
+// or the page stride).  f32 only (bf16 runs on the tensor cores:
+// `dispatch_prefill`).  kQuant: int8 values with f32 scales ks/vs; else
+// ks/vs are unused.
 template <bool kQuant, typename Rows>
 int dispatch(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* slot_idx, const void* q_offset,
@@ -485,10 +517,6 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks,
       q, k, v, ks, vs, si, qo, ln, out, M, Sq, Hk, G, cap, window, st, addr, scale, s)
   if (dtype == 0 && hd == 128) REPRO_PREFILL_LAUNCH(float, 128);
   if (dtype == 0 && hd == 64) REPRO_PREFILL_LAUNCH(float, 64);
-  if constexpr (kQuant) {    // a bf16 cache goes to the tensor cores
-    if (dtype == 1 && hd == 128) REPRO_PREFILL_LAUNCH(__nv_bfloat16, 128);
-    if (dtype == 1 && hd == 64) REPRO_PREFILL_LAUNCH(__nv_bfloat16, 64);
-  }
 #undef REPRO_PREFILL_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
@@ -635,7 +663,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // rows of cache row `slot`.  Paged: one box per page the tile covers
 // (pages of fewer than kTcBK rows give several), pages read from the
 // block table a tile ahead into pg[]; keys at or past the length read
-// page 0 (never past the table's row).
+// page 0 (never past the table's row).  page_of / in_page: where one
+// key's row lives, for the int8 scales' plain loads.
 struct TmaSlab {
   static constexpr bool kTable = false;
   static constexpr int kMaxBoxes = 1;
@@ -643,6 +672,8 @@ struct TmaSlab {
   __device__ __forceinline__ int boxes() const { return 1; }
   __device__ __forceinline__ void pages(int row, int, int, int* pg) const { pg[0] = row; }
   __device__ __forceinline__ int within(int k0, int) const { return k0; }
+  __device__ __forceinline__ int page_of(int row, int) const { return row; }
+  __device__ __forceinline__ int in_page(int pos) const { return pos; }
 };
 struct TmaPaged {
   static constexpr bool kTable = true;
@@ -651,60 +682,109 @@ struct TmaPaged {
   int pmax, shift;
   __device__ __forceinline__ int box_rows() const { return min(kTcBK, 1 << shift); }
   __device__ __forceinline__ int boxes() const { return kTcBK / box_rows(); }
+  __device__ __forceinline__ int page_of(int row, int pos) const {
+    return bt[(long long)row * pmax + (pos >> shift)];
+  }
+  __device__ __forceinline__ int in_page(int pos) const { return pos & ((1 << shift) - 1); }
   __device__ __forceinline__ void pages(int row, int k0, int len, int* pg) const {
 #pragma unroll
     for (int b = 0; b < kMaxBoxes; ++b) {
       const int pos = k0 + b * box_rows();
-      pg[b] = (b < boxes() && pos < len) ? bt[(long long)row * pmax + (pos >> shift)] : 0;
+      pg[b] = (b < boxes() && pos < len) ? page_of(row, pos) : 0;
     }
   }
   __device__ __forceinline__ int within(int k0, int b) const {
-    return (k0 + b * box_rows()) & ((1 << shift) - 1);
+    return in_page(k0 + b * box_rows());
   }
 };
 
-template <int HD>
+__device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
+  uint4 x;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(x.x), "=r"(x.y), "=r"(x.z), "=r"(x.w)
+               : "r"(addr)
+               : "memory");
+  return x;
+}
+
+// 16 int8 values -> 16 bf16 (lo: values 0-7, hi: 8-15), exactly: an
+// integer of at most 8 bits is exact in bf16, so the top half of the
+// float Vec16<int8_t> makes is the bf16 value, and one byte permute packs
+// two of them
+__device__ __forceinline__ void i8x16_bf16(const uint4& r, uint4& lo, uint4& hi) {
+  float f[16];
+  Vec16<int8_t>::unpack(r, f);
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    w[i] = __byte_perm(__float_as_uint(f[2 * i]), __float_as_uint(f[2 * i + 1]), 0x7632u);
+  lo = make_uint4(w[0], w[1], w[2], w[3]);
+  hi = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+template <int HD, bool kQuant>
 constexpr int tc_smem_bytes() {
-  // Q, then kTcStages x (K, V), each HD / 64 halves of 64-column rows;
-  // the barriers; slack to align the base to 1024 bytes (the swizzle atom)
-  return (HD / 64) * 64 * kSwRow + kTcStages * 2 * (HD / 64) * kTcBK * kSwRow +
-         8 * kTcStages + 1024;
+  // Q; bf16: kTcStages x (K, V), each HD / 64 halves of 64-column rows;
+  // int8: the bf16 (K, V) pair the tiles are converted into, kTcStages x
+  // int8 (K, V) of HD / 64 halves of 64-byte rows, and 2 x kTcBK f32
+  // scales; the barriers; slack to align the base to 1024 bytes (the
+  // swizzle atom)
+  constexpr int pair = 2 * (HD / 64) * kTcBK * kSwRow;
+  constexpr int ring = kQuant ? pair + kTcStages * 2 * (HD / 64) * kTcBK * 64 + 2 * kTcBK * 4
+                              : kTcStages * pair;
+  return (HD / 64) * 64 * kSwRow + ring + 8 * kTcStages + 1024;
 }
 
 // grid (query tiles * splits, Hk, M); block 128 (one warpgroup); dynamic
-// shared memory tc_smem_bytes<HD>().  kmap/vmap: the cache leaves as 4-D
-// maps [outer, rows, Hk, hd] (slab: outer = cache row, rows = S_max;
-// paged: outer = physical page, rows = page), boxes (64, 1, box_rows, 1),
-// 128-byte swizzle.  splits == 1: writes out [M, Sq, H, hd] (strides
-// o_*); else split s writes its unnormalised f32 accumulator to
-// part_o [splits, M, Sq, H, HD] and (m, l) to part_ml [splits, M, Sq, H,
-// 2], m in log2 units (scores times scale_log2).
-template <int HD, typename Rows>
+// shared memory tc_smem_bytes<HD, kQuant>().  kmap/vmap: the cache leaves
+// as 4-D maps [outer, rows, Hk, hd] (slab: outer = cache row, rows =
+// S_max; paged: outer = physical page, rows = page), boxes (64, 1,
+// box_rows, 1); bf16: 128-byte swizzle; kQuant: int8 values, no swizzle,
+// with scales ks/vs (bf16) at page_of(row, pos) * sp + in_page(pos) * ss +
+// h * sh.  splits == 1: writes out [M, Sq, H, hd] (strides o_*); else
+// split s writes its unnormalised f32 accumulator to part_o [splits, M,
+// Sq, H, HD] and (m, l) to part_ml [splits, M, Sq, H, 2], m in log2 units
+// (scores times scale_log2).
+template <int HD, bool kQuant, typename Rows>
 __global__ void __launch_bounds__(128, 1)
 prefill_tc_kernel(const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap,
-                  const __nv_bfloat16* __restrict__ q, const int* __restrict__ slot_idx,
+                  const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ ks,
+                  const __nv_bfloat16* __restrict__ vs, const int* __restrict__ slot_idx,
                   const int* __restrict__ q_offset, const int* __restrict__ lengths,
                   __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
                   float* __restrict__ part_ml, int Sq, int G, int cap, int window,
                   int splits, long long q_sm, long long q_ss, long long q_sh,
                   long long o_sm, long long o_ss, long long o_sh, Rows addr,
-                  float scale_log2) {
+                  long long ks_sp, long long ks_ss, long long ks_sh, long long vs_sp,
+                  long long vs_ss, long long vs_sh, float scale_log2) {
   constexpr int kHalves = HD / 64;
   static_assert(kHalves == 1 || kHalves == 2, "hd must be 64 or 128");
   constexpr int kNB = kTcBK / 64;                     // 64-key score blocks
   static_assert(kNB == 1 || kNB == 2, "key tiles of 64 or 128");
-  constexpr int kHalfBytes = kTcBK * kSwRow;          // one half of a K or V tile
+  constexpr int kHalfBytes = kTcBK * kSwRow;          // one half of a bf16 K or V tile
   constexpr int kQBytes = kHalves * 64 * kSwRow;
-  constexpr int kStageBytes = 2 * kHalves * kHalfBytes;
+  constexpr int kPairBytes = 2 * kHalves * kHalfBytes;
+  constexpr int kBoxRow = kQuant ? 64 : kSwRow;       // bytes of a box row in the ring
+  constexpr int kStageBytes = 2 * kHalves * kTcBK * kBoxRow;
   extern __shared__ unsigned char tc_smem[];
   const uint32_t raw = smem_u32(tc_smem);
   const uint32_t q_s = (raw + 1023u) & ~1023u;
-  const uint32_t stage0 = q_s + kQBytes;
-  const uint32_t bar0 = stage0 + kTcStages * kStageBytes;
-  auto k_tile = [&](int st, int hf) { return stage0 + st * kStageBytes + hf * kHalfBytes; };
+  // bf16: wgmma reads the ring's stages; int8: the ring holds the int8
+  // tiles, converted into the one bf16 pair after Q, and the scales
+  const uint32_t ring0 = q_s + kQBytes + (kQuant ? kPairBytes : 0);
+  const uint32_t sc_s = ring0 + kTcStages * kStageBytes;
+  const uint32_t bar0 = sc_s + (kQuant ? 2 * kTcBK * 4 : 0);
+  float* sc = reinterpret_cast<float*>(tc_smem + (sc_s - raw));   // K, then V scales
+  auto ring_k = [&](int st, int hf) { return ring0 + st * kStageBytes + hf * kTcBK * kBoxRow; };
+  auto ring_v = [&](int st, int hf) {
+    return ring0 + st * kStageBytes + (kHalves + hf) * kTcBK * kBoxRow;
+  };
+  auto k_tile = [&](int st, int hf) {
+    return kQuant ? q_s + kQBytes + hf * kHalfBytes : ring_k(st, hf);
+  };
   auto v_tile = [&](int st, int hf) {
-    return stage0 + st * kStageBytes + (kHalves + hf) * kHalfBytes;
+    return kQuant ? q_s + kQBytes + (kHalves + hf) * kHalfBytes : ring_v(st, hf);
   };
 
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
@@ -744,11 +824,11 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap kmap,
     for (int b = 0; b < Rows::kMaxBoxes; ++b) {
       if (b < addr.boxes()) {
         const int w = addr.within(k0, b);
-        const uint32_t off = b * addr.box_rows() * kSwRow;
+        const uint32_t off = b * addr.box_rows() * kBoxRow;
 #pragma unroll
         for (int hf = 0; hf < kHalves; ++hf) {
-          tma_load_4d(k_tile(st, hf) + off, km, bar, hf * 64, h, w, pg[b]);
-          tma_load_4d(v_tile(st, hf) + off, vm, bar, hf * 64, h, w, pg[b]);
+          tma_load_4d(ring_k(st, hf) + off, km, bar, hf * 64, h, w, pg[b]);
+          tma_load_4d(ring_v(st, hf) + off, vm, bar, hf * 64, h, w, pg[b]);
         }
       }
     }
@@ -759,6 +839,36 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap kmap,
       issue(it);
     }
     if (kTcStages < n_tiles) addr.pages(row, (t_lo + kTcStages) * kTcBK, len, pg);
+  }
+
+  // int8: scale j = t + 128 u of a tile is the K scale of key j (j <
+  // kTcBK) or the V scale of key j - kTcBK; loaded a tile ahead into
+  // sc_r, its page two tiles ahead into sc_pg; 0 at or past the length
+  constexpr int kScPer = kQuant ? 2 * kTcBK / 128 : 1;
+  float sc_r[kScPer];
+  int sc_pg[kScPer];
+  auto sc_pages = [&](int it) {
+#pragma unroll
+    for (int u = 0; u < kScPer; ++u) {
+      const int pos = (t_lo + it) * kTcBK + (t + 128 * u) % kTcBK;
+      sc_pg[u] = (it < n_tiles && pos < len) ? addr.page_of(row, pos) : 0;
+    }
+  };
+  auto sc_loads = [&](int it) {
+#pragma unroll
+    for (int u = 0; u < kScPer; ++u) {
+      const int j = t + 128 * u, pos = (t_lo + it) * kTcBK + j % kTcBK;
+      const bool is_v = j >= kTcBK;
+      const long long off = sc_pg[u] * (is_v ? vs_sp : ks_sp) +
+                            addr.in_page(pos) * (is_v ? vs_ss : ks_ss) +
+                            h * (is_v ? vs_sh : ks_sh);
+      sc_r[u] = (it < n_tiles && pos < len) ? to_f((is_v ? vs : ks)[off]) : 0.f;
+    }
+  };
+  if constexpr (kQuant) {
+    sc_pages(0);
+    sc_loads(0);
+    sc_pages(1);
   }
 
   // Q: 64 folded rows, 16-byte chunks stored with the 128-byte swizzle
@@ -800,6 +910,47 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap kmap,
     const int st = it % kTcStages, k0 = (t_lo + it) * kTcBK;
     mbar_wait(bar0 + 8 * st, (it / kTcStages) & 1);
 
+    if constexpr (kQuant) {
+      // int8 -> the bf16 pair.  16-byte chunk x = t + 128 u of the K (and
+      // of the V) tile: half x / (4 kTcBK), row (x / 4) % kTcBK, chunk x %
+      // 4, whose 16 values become bf16 chunks 2c and 2c + 1 of the
+      // swizzled row; rows at or past the length become 0
+      constexpr int kCh = kHalves * kTcBK * 4 / 128;
+      uint4 kr[kCh], vr[kCh];
+#pragma unroll
+      for (int u = 0; u < kCh; ++u) {
+        const int x = t + 128 * u, hf = x / (4 * kTcBK), rr = (x / 4) % kTcBK;
+        kr[u] = ld_shared16(ring_k(st, hf) + rr * 64 + (x % 4) * 16);
+        vr[u] = ld_shared16(ring_v(st, hf) + rr * 64 + (x % 4) * 16);
+      }
+#pragma unroll
+      for (int u = 0; u < kCh; ++u) {
+        const int x = t + 128 * u, hf = x / (4 * kTcBK), rr = (x / 4) % kTcBK, c = x % 4;
+        const bool ok = k0 + rr < len;
+        const uint32_t c0 = rr * kSwRow + (((2 * c) ^ (rr & 7)) << 4);
+        const uint32_t c1 = rr * kSwRow + (((2 * c + 1) ^ (rr & 7)) << 4);
+        const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+        uint4 lo, hi;
+        i8x16_bf16(kr[u], lo, hi);
+        st_shared16(k_tile(st, hf) + c0, ok ? lo : zero);
+        st_shared16(k_tile(st, hf) + c1, ok ? hi : zero);
+        i8x16_bf16(vr[u], lo, hi);
+        st_shared16(v_tile(st, hf) + c0, ok ? lo : zero);
+        st_shared16(v_tile(st, hf) + c1, ok ? hi : zero);
+      }
+#pragma unroll
+      for (int u = 0; u < kScPer; ++u) sc[t + 128 * u] = sc_r[u];
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();                    // the pair is written, stage st free
+      if (t == 0 && it + kTcStages < n_tiles) {
+        issue(it + kTcStages);
+        if (it + kTcStages + 1 < n_tiles)
+          addr.pages(row, (t_lo + it + kTcStages + 1) * kTcBK, len, pg);
+      }
+      sc_loads(it + 1);
+      sc_pages(it + 2);
+    }
+
     // S = Q K^T: HD / 16 steps of 16 columns, 32 bytes into a swizzled row
     // (one m64n64 accumulator per 64 keys of the tile)
     float s[kNB][32];
@@ -823,15 +974,17 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap kmap,
     for (int nb = 0; nb < kNB; ++nb) reg_fence(s[nb]);
 
     // mask per element; accumulator element e of s[nb] is row
-    // (e & 2 ? 8 : 0) + quad, column nb * 64 + (e / 4) * 8 + 2 * t4 + (e & 1)
+    // (e & 2 ? 8 : 0) + quad, column nb * 64 + (e / 4) * 8 + 2 * t4 + (e & 1);
+    // int8: the column's key scale multiplies the score first
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
-        const int j = (e >> 1) & 1;
-        const int kp = k0 + nb * 64 + (e / 4) * 8 + 2 * t4 + (e & 1);
-        s[nb][e] = (kp < k_hi[j] && kp >= k_lo[j]) ? s[nb][e] * scale_log2 : kNegInf;
+        const int j = (e >> 1) & 1, col = nb * 64 + (e / 4) * 8 + 2 * t4 + (e & 1);
+        const int kp = k0 + col;
+        const float f = kQuant ? sc[col] * scale_log2 : scale_log2;
+        s[nb][e] = (kp < k_hi[j] && kp >= k_lo[j]) ? s[nb][e] * f : kNegInf;
         mx[j] = fmaxf(mx[j], s[nb][e]);
       }
     float corr[2];
@@ -853,9 +1006,16 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap kmap,
         l_r[j] += s[nb][e];
       }
 
-    // rows at or past the length: zero their V rows (a whole 128-byte
-    // row, whatever the swizzle) so 0 * garbage cannot make a NaN
-    if (k0 + kTcBK > len) {
+    if constexpr (kQuant) {
+      // l summed the unscaled P; P V takes P times the column's V scale
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          s[nb][e] *= sc[kTcBK + nb * 64 + (e / 4) * 8 + 2 * t4 + (e & 1)];
+    } else if (k0 + kTcBK > len) {
+      // rows at or past the length: zero their V rows (a whole 128-byte
+      // row, whatever the swizzle) so 0 * garbage cannot make a NaN
       for (int c = t; c < kHalves * kTcBK * 8; c += 128) {
         const int hf = c / (kTcBK * 8), rr = (c / 8) % kTcBK;
         if (k0 + rr >= len)
@@ -893,7 +1053,7 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap kmap,
     for (int hf = 0; hf < kHalves; ++hf) reg_fence(o[hf]);
 
     __syncthreads();                      // every warp is done with stage st
-    if (t == 0 && it + kTcStages < n_tiles) {
+    if (!kQuant && t == 0 && it + kTcStages < n_tiles) {
       issue(it + kTcStages);
       if (it + kTcStages + 1 < n_tiles)
         addr.pages(row, (t_lo + it + kTcStages + 1) * kTcBK, len, pg);
@@ -1011,57 +1171,64 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 cache leaf [outer, rows, Hk, hd] (strides in elements, unit on
-// hd) as a 4-D tensor map with boxes of (64 columns, 1 head, box_rows
-// rows, 1 outer) and the 128-byte swizzle.  TMA needs a 16-byte-aligned
-// base and strides that are multiples of 16 bytes (the wrapper checks
-// both); keys past `rows` read as zeros.
-cudaError_t encode_cache(CUtensorMap* map, const void* base, int outer, int rows, int Hk,
-                         int hd, long long s_outer, long long s_row, long long s_head,
-                         int box_rows) {
+// A cache leaf [outer, rows, Hk, hd] (strides in elements, unit on hd)
+// as a 4-D tensor map with boxes of (64 columns, 1 head, box_rows rows, 1
+// outer): bf16 with the 128-byte swizzle that the wgmma descriptors read,
+// or int8 unswizzled (64-byte box rows, converted in shared memory).  TMA
+// needs a 16-byte-aligned base and strides that are multiples of 16 bytes
+// (the wrapper checks both); keys past `rows` read as zeros.
+cudaError_t encode_cache(CUtensorMap* map, const void* base, bool int8, int outer, int rows,
+                         int Hk, int hd, long long s_outer, long long s_row,
+                         long long s_head, int box_rows) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return cudaErrorNotSupported;
+  const int es = int8 ? 1 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)Hk, (cuuint64_t)rows,
                               (cuuint64_t)outer};
-  const cuuint64_t strides[3] = {(cuuint64_t)s_head * 2, (cuuint64_t)s_row * 2,
-                                 (cuuint64_t)s_outer * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)(s_head * es), (cuuint64_t)(s_row * es),
+                                 (cuuint64_t)(s_outer * es)};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r =
+      fn(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+         const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The bf16 entries: the maps of k and v, then the main kernel and, with
-// more than one split, the merge.  st as `dispatch`; rows/outer: the
-// maps' row and outer extents; box_rows: rows per box.
-template <int HD, typename Rows>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* slot_idx,
-                      const int* q_offset, const int* lengths, void* out, float* part_o,
-                      float* part_ml, int M, int Sq, int Hk, int G, int cap, int window,
-                      int splits, int outer, int rows, int box_rows, const long long* st,
-                      Rows addr, float scale, cudaStream_t stream) {
+// The bf16 path of every entry: the maps of k and v, then the main kernel
+// and, with more than one split, the merge.  st as `dispatch`; kQuant:
+// int8 k/v with bf16 scales ks/vs; rows/outer: the maps' row and outer
+// extents; box_rows: rows per box.
+template <int HD, bool kQuant, typename Rows>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* ks,
+                      const void* vs, const int* slot_idx, const int* q_offset,
+                      const int* lengths, void* out, float* part_o, float* part_ml, int M,
+                      int Sq, int Hk, int G, int cap, int window, int splits, int outer,
+                      int rows, int box_rows, const long long* st, Rows addr, float scale,
+                      cudaStream_t stream) {
   CUtensorMap kmap, vmap;
-  cudaError_t e = encode_cache(&kmap, k, outer, rows, Hk, HD, st[3], st[4], st[5], box_rows);
+  cudaError_t e =
+      encode_cache(&kmap, k, kQuant, outer, rows, Hk, HD, st[3], st[4], st[5], box_rows);
   if (e != cudaSuccess) return e;
-  e = encode_cache(&vmap, v, outer, rows, Hk, HD, st[6], st[7], st[8], box_rows);
+  e = encode_cache(&vmap, v, kQuant, outer, rows, Hk, HD, st[6], st[7], st[8], box_rows);
   if (e != cudaSuccess) return e;
-  constexpr int bytes = tc_smem_bytes<HD>();
+  constexpr int bytes = tc_smem_bytes<HD, kQuant>();
   static bool configured = false;
   if (!configured) {
-    e = cudaFuncSetAttribute(prefill_tc_kernel<HD, Rows>,
+    e = cudaFuncSetAttribute(prefill_tc_kernel<HD, kQuant, Rows>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const int qpt = kBM / G;
   const dim3 grid(((Sq + qpt - 1) / qpt) * splits, Hk, M);
-  prefill_tc_kernel<HD, Rows><<<grid, 128, bytes, stream>>>(
-      kmap, vmap, (const __nv_bfloat16*)q, slot_idx, q_offset, lengths,
-      (__nv_bfloat16*)out, part_o, part_ml, Sq, G, cap, window, splits, st[0], st[1],
-      st[2], st[9], st[10], st[11], addr, scale * 1.4426950408889634f);
+  prefill_tc_kernel<HD, kQuant, Rows><<<grid, 128, bytes, stream>>>(
+      kmap, vmap, (const __nv_bfloat16*)q, (const __nv_bfloat16*)ks,
+      (const __nv_bfloat16*)vs, slot_idx, q_offset, lengths, (__nv_bfloat16*)out, part_o,
+      part_ml, Sq, G, cap, window, splits, st[0], st[1], st[2], st[9], st[10], st[11], addr,
+      st[12], st[13], st[14], st[15], st[16], st[17], scale * 1.4426950408889634f);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   return launch_merge<HD>(part_o, part_ml, out, 1, M, Sq, Hk * G, splits, st[9], st[10],
@@ -1069,18 +1236,19 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* sl
 }
 
 // dtype 1 (bf16) goes to the tensor cores, dtype 0 (f32) to the CUDA-core
-// body; splits > 1 only for bf16, with scratch part_o/part_ml
-template <typename TcRows, typename Rows>
-int dispatch_dense(const void* q, const void* k, const void* v, const void* slot_idx,
-                   const void* q_offset, const void* lengths, void* out, void* part_o,
-                   void* part_ml, int dtype, int M, int Sq, int Hk, int G, int cap, int hd,
-                   int window, int splits, int outer, int rows, int box_rows,
-                   const long long* st, TcRows tc_addr, Rows addr, float scale,
-                   void* stream) {
+// body; splits > 1 only for bf16, with scratch part_o/part_ml.  kQuant:
+// int8 values k/v with scales ks/vs in q's type.
+template <bool kQuant, typename TcRows, typename Rows>
+int dispatch_prefill(const void* q, const void* k, const void* v, const void* ks,
+                     const void* vs, const void* slot_idx, const void* q_offset,
+                     const void* lengths, void* out, void* part_o, void* part_ml, int dtype,
+                     int M, int Sq, int Hk, int G, int cap, int hd, int window, int splits,
+                     int outer, int rows, int box_rows, const long long* st, TcRows tc_addr,
+                     Rows addr, float scale, void* stream) {
   if (dtype != 1)
-    return splits == 1 ? dispatch<false>(q, k, v, nullptr, nullptr, slot_idx, q_offset,
-                                         lengths, out, dtype, M, Sq, Hk, G, cap, hd, window,
-                                         st, addr, scale, stream)
+    return splits == 1 ? dispatch<kQuant>(q, k, v, ks, vs, slot_idx, q_offset, lengths, out,
+                                          dtype, M, Sq, Hk, G, cap, hd, window, st, addr,
+                                          scale, stream)
                        : (int)cudaErrorInvalidValue;
   if (G < 1 || G > kBM || splits < 1 || splits > kMaxSplits ||
       (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
@@ -1091,13 +1259,13 @@ int dispatch_dense(const void* q, const void* k, const void* v, const void* slot
   const int* ln = (const int*)lengths;
   cudaStream_t s = (cudaStream_t)stream;
   if (hd == 128)
-    return (int)launch_tc<128>(q, k, v, si, qo, ln, out, (float*)part_o, (float*)part_ml,
-                               M, Sq, Hk, G, cap, window, splits, outer, rows, box_rows,
-                               st, tc_addr, scale, s);
+    return (int)launch_tc<128, kQuant>(q, k, v, ks, vs, si, qo, ln, out, (float*)part_o,
+                                       (float*)part_ml, M, Sq, Hk, G, cap, window, splits,
+                                       outer, rows, box_rows, st, tc_addr, scale, s);
   if (hd == 64)
-    return (int)launch_tc<64>(q, k, v, si, qo, ln, out, (float*)part_o, (float*)part_ml,
-                              M, Sq, Hk, G, cap, window, splits, outer, rows, box_rows, st,
-                              tc_addr, scale, s);
+    return (int)launch_tc<64, kQuant>(q, k, v, ks, vs, si, qo, ln, out, (float*)part_o,
+                                      (float*)part_ml, M, Sq, Hk, G, cap, window, splits,
+                                      outer, rows, box_rows, st, tc_addr, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1121,9 +1289,10 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              float scale, void* stream) {
   const long long st[18] = {q_sm, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                             o_sm, o_ss, o_sh, 0,    0,    0,    0,    0,    0};
-  return dispatch_dense(q, k, v, slot_idx, q_offset, lengths, out, part_o, part_ml, dtype,
-                        M, Sq, Hk, G, S, hd, window, splits, B, S, kTcBK, st, TmaSlab{},
-                        SlabRows{}, scale, stream);
+  return dispatch_prefill<false>(q, k, v, nullptr, nullptr, slot_idx, q_offset, lengths,
+                                 out, part_o, part_ml, dtype, M, Sq, Hk, G, S, hd, window,
+                                 splits, B, S, kTcBK, st, TmaSlab{}, SlabRows{}, scale,
+                                 stream);
 }
 
 // Paged arena k/v [P_phys, page, Hk, hd] with strides (sp, ss, sh);
@@ -1143,11 +1312,11 @@ extern "C" int flash_prefill_paged(const void* q, const void* k, const void* v,
   const long long st[18] = {q_sm, q_ss, q_sh, k_sp, k_ss, k_sh, v_sp, v_ss, v_sh,
                             o_sm, o_ss, o_sh, 0,    0,    0,    0,    0,    0};
   const int* bt = (const int*)block_tables;
-  return dispatch_dense(q, k, v, nullptr, q_offset, lengths, out, part_o, part_ml, dtype,
-                        M, Sq, Hk, G, pmax << page_shift, hd, window, splits, P,
-                        1 << page_shift, (1 << page_shift) < kTcBK ? 1 << page_shift : kTcBK, st,
-                        TmaPaged{bt, pmax, page_shift}, PagedRows{bt, pmax, page_shift},
-                        scale, stream);
+  return dispatch_prefill<false>(
+      q, k, v, nullptr, nullptr, nullptr, q_offset, lengths, out, part_o, part_ml, dtype, M,
+      Sq, Hk, G, pmax << page_shift, hd, window, splits, P, 1 << page_shift,
+      (1 << page_shift) < kTcBK ? 1 << page_shift : kTcBK, st,
+      TmaPaged{bt, pmax, page_shift}, PagedRows{bt, pmax, page_shift}, scale, stream);
 }
 
 // The merge of the bf16 entries alone: part_o [splits, M, Sq, H, hd] and
@@ -1169,12 +1338,13 @@ extern "C" int prefill_merge(const void* part_o, const void* part_ml, void* out,
 
 // int8 slab cache: values k/v int8 [B, S, Hk, hd] with strides (sb, ss,
 // sh), scales ks/vs [B, S, Hk, 1] in q's type with strides (sb, ss, sh).
-// Other arguments as flash_prefill.
+// Other arguments (splits and scratch included) as flash_prefill.
 extern "C" int flash_prefill_quant(const void* q, const void* k, const void* ks,
                                    const void* v, const void* vs, const void* slot_idx,
                                    const void* q_offset, const void* lengths, void* out,
-                                   int dtype, int M, int Sq, int Hk, int G, int S, int hd,
-                                   int window, long long q_sm, long long q_ss,
+                                   void* part_o, void* part_ml, int dtype, int M, int Sq,
+                                   int Hk, int G, int S, int hd, int window, int B,
+                                   int splits, long long q_sm, long long q_ss,
                                    long long q_sh, long long k_sb, long long k_ss,
                                    long long k_sh, long long ks_sb, long long ks_ss,
                                    long long ks_sh, long long v_sb, long long v_ss,
@@ -1184,8 +1354,9 @@ extern "C" int flash_prefill_quant(const void* q, const void* k, const void* ks,
   const long long st[18] = {q_sm,  q_ss,  q_sh,  k_sb,  k_ss,  k_sh,
                             v_sb,  v_ss,  v_sh,  o_sm,  o_ss,  o_sh,
                             ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh};
-  return dispatch<true>(q, k, v, ks, vs, slot_idx, q_offset, lengths, out, dtype, M, Sq,
-                        Hk, G, S, hd, window, st, SlabRows{}, scale, stream);
+  return dispatch_prefill<true>(q, k, v, ks, vs, slot_idx, q_offset, lengths, out, part_o,
+                                part_ml, dtype, M, Sq, Hk, G, S, hd, window, splits, B, S,
+                                kTcBK, st, TmaSlab{}, SlabRows{}, scale, stream);
 }
 
 // int8 paged arenas: values k/v int8 [P_phys, page, Hk, hd] and scales
@@ -1194,18 +1365,20 @@ extern "C" int flash_prefill_quant(const void* q, const void* k, const void* ks,
 extern "C" int flash_prefill_paged_quant(
     const void* q, const void* k, const void* ks, const void* v, const void* vs,
     const void* block_tables, const void* q_offset, const void* lengths, void* out,
-    int dtype, int M, int Sq, int Hk, int G, int pmax, int page_shift, int hd,
-    int window, long long q_sm, long long q_ss, long long q_sh, long long k_sp,
-    long long k_ss, long long k_sh, long long ks_sp, long long ks_ss, long long ks_sh,
-    long long v_sp, long long v_ss, long long v_sh, long long vs_sp, long long vs_ss,
-    long long vs_sh, long long o_sm, long long o_ss, long long o_sh, float scale,
-    void* stream) {
-  if (page_shift < 0 || page_shift > 16 || pmax < 1) return (int)cudaErrorInvalidValue;
+    void* part_o, void* part_ml, int dtype, int M, int Sq, int Hk, int G, int pmax,
+    int page_shift, int hd, int window, int P, int splits, long long q_sm, long long q_ss,
+    long long q_sh, long long k_sp, long long k_ss, long long k_sh, long long ks_sp,
+    long long ks_ss, long long ks_sh, long long v_sp, long long v_ss, long long v_sh,
+    long long vs_sp, long long vs_ss, long long vs_sh, long long o_sm, long long o_ss,
+    long long o_sh, float scale, void* stream) {
+  if (page_shift < 3 || page_shift > 16 || pmax < 1) return (int)cudaErrorInvalidValue;
   const long long st[18] = {q_sm,  q_ss,  q_sh,  k_sp,  k_ss,  k_sh,
                             v_sp,  v_ss,  v_sh,  o_sm,  o_ss,  o_sh,
                             ks_sp, ks_ss, ks_sh, vs_sp, vs_ss, vs_sh};
-  return dispatch<true>(q, k, v, ks, vs, nullptr, q_offset, lengths, out, dtype, M, Sq,
-                        Hk, G, pmax << page_shift, hd, window, st,
-                        PagedRows{(const int*)block_tables, pmax, page_shift}, scale,
-                        stream);
+  const int* bt = (const int*)block_tables;
+  return dispatch_prefill<true>(
+      q, k, v, ks, vs, nullptr, q_offset, lengths, out, part_o, part_ml, dtype, M, Sq, Hk,
+      G, pmax << page_shift, hd, window, splits, P, 1 << page_shift,
+      (1 << page_shift) < kTcBK ? 1 << page_shift : kTcBK, st,
+      TmaPaged{bt, pmax, page_shift}, PagedRows{bt, pmax, page_shift}, scale, stream);
 }

@@ -17,11 +17,15 @@ arenas [P_phys, page, Hk, hd] with ``block_tables`` [M, P_max] int32
 ``f32(int8) * f32(scale)``.  Caches are read in place.  Every query row
 must have at least one unmasked key (``q_offset + i < lengths``).
 
-The bf16 entries run on the tensor cores and split each block's live key
-range into a static number of shares, merged by a second kernel; the
-plan (``tile_bounds``, ``split_share``, ``prefill_splits``) and the merge
-(``merge_partials_plain``) are written out here in plain Python, for the
-tests and ``chip_smoke.py``.
+Which body runs a call follows q's type, for all four entries: with bf16
+q the products run on the tensor cores (the model-type entries on bf16
+tiles; the int8 entries on int8 tiles converted to bf16 in shared memory,
+the scales applied to the scores and to P outside the products), each
+block's live key range split into a static number of shares merged by a
+second kernel; with f32 q they run on the CUDA cores in f32, unsplit.
+The plan (``tile_bounds``, ``split_share``, ``prefill_splits``) and the
+merge (``merge_partials_plain``) are written out here in plain Python,
+for the tests and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -84,9 +88,11 @@ def merge_partials_plain(part_o, part_ml, dtype):
 
 
 def check_tma_layout(t, name: str) -> None:
-    """The layout TMA reads a bf16 cache leaf in: a unit stride on hd, a
-    16-byte-aligned base and every other stride a multiple of 16 bytes.
-    Raises ``ValueError`` otherwise; reads only the tensor's metadata."""
+    """The layout TMA reads a cache value leaf in (bf16, or int8 values;
+    never the int8 scales, which are read by plain loads): a unit stride
+    on hd, a 16-byte-aligned base and every other stride a multiple of 16
+    bytes.  Raises ``ValueError`` otherwise; reads only the tensor's
+    metadata."""
     es = t.element_size()
     if (t.stride(-1) != 1 or t.data_ptr() % 16
             or any(st * es % 16 for st in t.stride()[:-1])):
@@ -203,36 +209,33 @@ def _call(name: str, ptrs, ints, strides, scale, stream):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _launch(entry: str, q, leaves, index, ints, splits=None):
+def _launch(entry: str, q, leaves, index, ints, splits: int):
     """Call ``entry`` of ``csrc/prefill_attention.cu`` on the current
     stream: the pointers of q, the cache leaves, the index tensors (None:
-    a null pointer), the output and, for the bf16-capable entries
-    (``splits`` given), the split scratch (None with one split); q's
-    type, ``ints`` (then ``splits``), the (row, position, head) strides
-    of q, each leaf and the output, the softmax scale and the stream.
-    The caller (``ops``) has checked devices, types and layouts."""
+    a null pointer), the output and the split scratch (None with one
+    split); q's type, ``ints``, then ``splits``; the (row, position, head)
+    strides of q, each leaf and the output, the softmax scale and the
+    stream.  The caller (``ops``) has checked devices, types and
+    layouts."""
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    scratch = []
-    if splits is not None:
-        scratch = [None, None]
-        if splits > 1:
-            # one f32 buffer: the accumulators [splits, M, Sq, H, hd], then
-            # (m, l) [splits, M, Sq, H, 2]
-            rows = splits * q.shape[0] * q.shape[1] * q.shape[2]
-            buf = q.new_empty(rows * (q.shape[3] + 2), dtype=torch.float32)
-            scratch = [buf, buf[rows * q.shape[3]:]]
-        ints = (*ints, splits)
+    scratch = [None, None]
+    if splits > 1:
+        # one f32 buffer: the accumulators [splits, M, Sq, H, hd], then
+        # (m, l) [splits, M, Sq, H, 2]
+        rows = splits * q.shape[0] * q.shape[1] * q.shape[2]
+        buf = q.new_empty(rows * (q.shape[3] + 2), dtype=torch.float32)
+        scratch = [buf, buf[rows * q.shape[3]:]]
     strides = [st for t in (q, *leaves, out) for st in t.stride()[:3]]
     _call(entry, [q, *leaves, *index, out, *scratch],
-          (0 if q.dtype == torch.float32 else 1, *ints), strides,
+          (0 if q.dtype == torch.float32 else 1, *ints, splits), strides,
           1.0 / q.shape[3] ** 0.5,
           torch.cuda.current_stream(q.device).cuda_stream)
     return out
 
 
 def _dense_splits(q, Hk: int, cap: int) -> int:
-    """The split count of a call: ``prefill_splits`` in bf16; f32 runs
-    unsplit on the CUDA-core body."""
+    """The split count of a call (every entry): ``prefill_splits`` in
+    bf16; f32 runs unsplit on the CUDA-core body."""
     if q.dtype != torch.bfloat16:
         return 1
     M, Sq, H, _ = q.shape
@@ -294,10 +297,13 @@ def prefill_attention_quant_cuda(q, k_q, k_s, v_q, v_s, q_offset, lengths,
                                  *, window: int = 0, slot_idx=None):
     """Launch the int8 slab kernel (``ops.flash_prefill_quant``)."""
     M, Sq, H, hd = q.shape
-    S, Hk = k_q.shape[1], k_q.shape[2]
+    B, S, Hk = k_q.shape[:3]
+    if q.dtype == torch.bfloat16:
+        q = _q_rows_aligned(q)
     return _launch("flash_prefill_quant", q, (k_q, k_s, v_q, v_s),
                    (slot_idx, q_offset, lengths),
-                   (M, Sq, Hk, H // Hk, S, hd, int(window)))
+                   (M, Sq, Hk, H // Hk, S, hd, int(window), B),
+                   splits=_dense_splits(q, Hk, S))
 
 
 def prefill_attention_paged_quant_cuda(q, k_q, k_s, v_q, v_s, q_offset,
@@ -306,8 +312,12 @@ def prefill_attention_paged_quant_cuda(q, k_q, k_s, v_q, v_s, q_offset,
     """Launch the int8 paged kernel (``ops.flash_prefill_paged_quant``;
     the page size is a power of two)."""
     M, Sq, H, hd = q.shape
-    page, Hk = k_q.shape[1], k_q.shape[2]
+    P, page, Hk = k_q.shape[:3]
+    pmax = block_tables.shape[1]
+    if q.dtype == torch.bfloat16:
+        q = _q_rows_aligned(q)
     return _launch("flash_prefill_paged_quant", q, (k_q, k_s, v_q, v_s),
                    (block_tables, q_offset, lengths),
-                   (M, Sq, Hk, H // Hk, block_tables.shape[1],
-                    page.bit_length() - 1, hd, int(window)))
+                   (M, Sq, Hk, H // Hk, pmax, page.bit_length() - 1, hd,
+                    int(window), P),
+                   splits=_dense_splits(q, Hk, pmax * page))

@@ -875,3 +875,131 @@ def test_cuda_moe_gmm_tc_repeated_rows(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got, ops.moe_gmm(rep.contiguous(), w))
     assert _err(got, gmm_plain(rep, w)) <= TOL["bfloat16"]
+
+
+# ---------------------------------------------------------------------------
+# the int8 prefill entries with bf16 q: the tensor-core body on int8 tiles
+# ---------------------------------------------------------------------------
+
+def _int8_leaves(rnd, B, S, Hk, hd):
+    """int8 values and bf16 scales of two [B, S, 2 Hk, hd] buffers: the
+    contiguous first Hk heads, and every other head (a strided view)."""
+    wk, wks = quantize_kv(rnd(B, S, 2 * Hk, hd))
+    wv, wvs = quantize_kv(rnd(B, S, 2 * Hk, hd))
+    wide = (wk, wks, wv, wvs)
+    return ([x[:, :, :Hk].contiguous() for x in wide],
+            [x[:, :, ::2] for x in wide])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,Hk,hd", HEADS)
+def test_cuda_int8_bf16_prefill_matches_plain(cuda, H, Hk, hd):
+    """The int8 slab entry with bf16 q against its plain version on every
+    chunk length of the serving path (spec-verify 1, 2 and 8 to 320-token
+    chunks) at offsets 0, 3000 and 8000, windows 0 and 256, a permuted
+    slot order, contiguous and strided value and scale views; the plan
+    takes one split for the largest batch and many for the smallest; two
+    calls give the same bits."""
+    tol, dt = TOL["bfloat16"], torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(11 * H + hd)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    B, S = 4, PREFILL_S
+    splits = set()
+    for kv in _int8_leaves(rnd, B, S, Hk, hd):
+        for Sq in PREFILL_SQ:
+            for off in (0, 3000, 8000):
+                for window in (0, 256):
+                    qo = _i32(_prefill_rows(off))
+                    ln, slots = qo + Sq, _i32([3, 0, 2])
+                    qq = rnd(3, Sq, H, hd)
+                    got = ops.flash_prefill_quant(qq, *kv, qo, ln,
+                                                  window=window,
+                                                  slot_idx=slots)
+                    want = prefill_attention_quant_plain(
+                        qq, *kv, qo, ln, window=window, slot_idx=slots)
+                    assert _err(got, want) <= tol, (Sq, off, window)
+                    splits.add(_splits(qq, Hk, S))
+        qq = rnd(8, 320, H, hd)
+        qo = _i32([0, 3000, 8000, 100, 5000, 64, 7000, 2500])
+        ln, slots = qo + 320, _i32([0, 1, 2, 3, 3, 2, 1, 0])
+        got = ops.flash_prefill_quant(qq, *kv, qo, ln, slot_idx=slots)
+        assert _err(got, prefill_attention_quant_plain(
+            qq, *kv, qo, ln, slot_idx=slots)) <= tol
+        assert torch.equal(got, ops.flash_prefill_quant(qq, *kv, qo, ln,
+                                                        slot_idx=slots))
+        splits.add(_splits(qq, Hk, S))
+    assert 1 in splits and max(splits) > 1, splits
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,Hk,hd", HEADS)
+def test_cuda_int8_bf16_prefill_ignores_what_lies_past_the_length(cuda, H,
+                                                                  Hk, hd):
+    """NaN scales and garbage values at and past every row's length (in
+    the last live tile and beyond) change nothing: the entry gives the
+    plain version's answer on a copy zeroed there, at one split and at
+    several."""
+    tol, dt = TOL["bfloat16"], torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(13 * H + hd)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    kv, _ = _int8_leaves(rnd, 3, 2048, Hk, hd)
+    for Sq, offs in ((1, [0, 37, 1500]), (8, [5, 700, 1990]),
+                     (100, [0, 61, 1900]), (320, [0, 1000, 1700])):
+        qo = _i32(offs)
+        ln = qo + Sq
+        bad = [x.clone() for x in kv]
+        clean = [x.clone() for x in kv]
+        for x, c in zip(bad, clean):
+            for r, n in enumerate(ln.tolist()):
+                x[r, n:] = 127 if x.dtype == torch.int8 else float("nan")
+                c[r, n:] = 0
+        qq = rnd(3, Sq, H, hd)
+        got = ops.flash_prefill_quant(qq, *bad, qo, ln)
+        assert torch.isfinite(got).all(), Sq
+        assert _err(got, prefill_attention_quant_plain(qq, *clean, qo,
+                                                       ln)) <= tol, Sq
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [16, 64, 128])
+@pytest.mark.parametrize("H,Hk,hd", HEADS)
+def test_cuda_int8_bf16_prefill_paged_matches_plain(cuda, page, H, Hk, hd):
+    """The int8 paged entry with bf16 q against its plain version and
+    against the int8 slab entry on the gathered rows: pages of 16, 64 and
+    128, shuffled tables in which two rows share pages and unmapped
+    entries name the scratch page, every chunk length, windows 0 and
+    256."""
+    tol, dt = TOL["bfloat16"], torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(H + hd + page + 3)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    rng = np.random.default_rng(page + hd + 3)
+    S = PREFILL_S
+    pmax = S // page
+    lens = [8000 + 320] * 3 + [100]
+    P = len(lens) * pmax
+    kq, ks = quantize_kv(rnd(P + 1, page, Hk, hd))
+    vq, vs = quantize_kv(rnd(P + 1, page, Hk, hd))
+    arenas = (kq, ks, vq, vs)
+    bt = torch.tensor(shared_tables(rng, lens, pmax, page, P), device="cuda")
+    lin = [paged_gather(a, bt) for a in arenas]
+    for Sq in PREFILL_SQ:
+        for off in (0, 3000, 8000):
+            for window in (0, 256):
+                rows = _i32([2, 0, 1])
+                qo = _i32(_prefill_rows(off))
+                ln = qo + Sq
+                bt_m = bt[rows.long()].contiguous()
+                qq = rnd(3, Sq, H, hd)
+                got = ops.flash_prefill_paged_quant(qq, *arenas, qo, ln, bt_m,
+                                                    window=window)
+                want = prefill_attention_paged_quant_plain(
+                    qq, *arenas, qo, ln, bt_m, window=window)
+                assert _err(got, want) <= tol, (Sq, off, window)
+                slab = ops.flash_prefill_quant(qq, *lin, qo, ln,
+                                               window=window, slot_idx=rows)
+                assert _err(got, slab) <= tol, (Sq, off, window)
+    assert torch.equal(got, ops.flash_prefill_paged_quant(
+        qq, *arenas, qo, ln, bt_m, window=window))
+    torch.cuda.synchronize()
