@@ -9,9 +9,10 @@ failure:
 2. build   — compiles every CUDA kernel from ``src/repro_torch/kernels/
              csrc`` (one nvcc per source, in parallel) and prints
              ptxas's register / shared-memory / spill lines, and the
-             count of tensor-core (HGMMA) instructions in each built
-             library's SASS (``cuobjdump -sass``; > 0 for
-             prefill_attention and moe_gmm).
+             count of tensor-core instructions in each built library's
+             SASS (``cuobjdump -sass``): HGMMA (wgmma; > 0 for
+             prefill_attention and moe_gmm) and HMMA (mma.sync; > 0 for
+             ssd_scan).
 3. parity  — each kernel against its plain PyTorch version at the main
              path's shapes (Qwen2.5-3B heads 16/2/128, SmolLM-360M heads
              15/5/64 and OLMoE-1B-7B heads 16/16/128, S_max 8192, ragged
@@ -55,8 +56,10 @@ Mamba-2 (the SSD chunked scan, ``ssd_scan``):
              (48 heads of 64, d_state 128, chunk 256): S in {1, 50, 160,
              256, 1000} with a nonzero carried-in state and a tail of
              dt = 0 rows, f32 within 2e-4 and bf16 within 2e-2 on y and
-             on the state; timed at a 160-token cold chunk and a 4 x 64
-             resume batch beside the bound max(flops / 989e12,
+             on the state (bf16 runs the tensor-core body); timed at a
+             160-token cold chunk and a 4 x 64 resume batch (CUDA events
+             and the profiler's device time; the block plan and waves
+             first) beside the bound max(flops / 989e12,
              bytes / 3.35e12) (per batch row and chunk of Q rows, with
              T = Q(Q+1)/2 causal pairs: 2TN flops for C B^T, shared by the
              heads, and 2T hd + 4Q hd N per head; x, dt, B, C, h0 and A
@@ -286,14 +289,17 @@ def phase_build():
         _build.load(n)
     # tensor-core instructions in each built library's SASS
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    hgmma = {}
+    hgmma, hmma = {}, {}
     for n in names:
         sass = subprocess.run([cuobjdump, "-sass", str(_build._target(n))],
                               capture_output=True, text=True,
-                              check=True).stdout
-        hgmma[n] = sum("HGMMA" in line for line in sass.splitlines())
+                              check=True).stdout.splitlines()
+        hgmma[n] = sum("HGMMA" in line for line in sass)
+        hmma[n] = sum("HMMA" in line for line in sass)
     log(f"[build] HGMMA instructions in SASS: {hgmma}")
+    log(f"[build] HMMA (mma.sync) instructions in SASS: {hmma}")
     assert hgmma["prefill_attention"] > 0 and hgmma["moe_gmm"] > 0, hgmma
+    assert hmma["ssd_scan"] > 0, hmma
 
 
 def _rand(gen, shape, dtype):
@@ -809,24 +815,40 @@ def ssd_bound(B, S, chunk, es):
 
 
 def phase_timing_ssm():
-    """The scan kernel and its plain version in bf16 at the slice's
-    shapes: one 160-token cold chunk (B = 1) and a 4 x 64 resume batch."""
+    """The scan kernel (bf16: the tensor-core body) and its plain version
+    at the slice's shapes: one 160-token cold chunk (B = 1) and a 4 x 64
+    resume batch.  The kernel's CUDA-event time and its profiler device
+    time (its own time: the event time also sees the host's launch rate),
+    beside each shape's bound; first the block plan (grid, shared memory,
+    blocks resident an SM as the CUDA runtime reports them, waves)."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ssd_scan import ssd_inputs, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import (ssd_inputs, ssd_scan_plain,
+                                              tc_occupancy, tc_plan)
     gen = torch.Generator(device="cuda").manual_seed(5)
     dtype, es = torch.bfloat16, 2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    smem, resident = tc_occupancy(SSD_HD, SSD_N)
     res = {}
     for what, B, S in (("cold chunk", 1, 160), ("resume batch", 4, 64)):
+        plan = tc_plan(B, SSD_NH, SSD_HD, SSD_N)
+        assert smem == plan.smem_bytes and resident >= plan.resident_per_sm
+        log(f"[timing] ssd_scan {what} plan: grid {plan.grid} = "
+            f"{plan.blocks} blocks of {plan.threads} threads, "
+            f"{smem} B shared memory, {resident} resident an SM (the plan "
+            f"{plan.resident_per_sm}) on {sms} SMs: {plan.waves(sms)} "
+            f"wave(s)")
         args = ssd_inputs(gen, B, S, SSD_NH, SSD_HD, SSD_N, dtype)
         bound, by = _bound_ms(*ssd_bound(B, S, SSD_CHUNK, es), dtype)
-        r = dict(ms=_time_ms(lambda: ops.ssd_scan(*args, chunk=SSD_CHUNK)),
+        fn = lambda: ops.ssd_scan(*args, chunk=SSD_CHUNK)
+        r = dict(ms=_time_ms(fn), device_ms=_device_ms(fn),
                  plain_ms=_time_ms(lambda: ssd_scan_plain(
                      *args, chunk=SSD_CHUNK)),
                  library_ms=None, bound_ms=bound, bound_by=by)
         log(f"[timing] ssd_scan {what} B={B} S={S} nh/hd/N="
             f"{SSD_NH}/{SSD_HD}/{SSD_N} bf16: kernel_ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} library_ms=none (no single "
-            f"PyTorch call) bound_ms={bound:.5f} ({by})")
+            f"device_ms={r['device_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms=none (no single PyTorch call) "
+            f"bound_ms={bound:.5f} ({by})")
         if what == "cold chunk":
             res["ssd_scan"] = r
     return res

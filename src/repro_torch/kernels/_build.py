@@ -15,16 +15,18 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# name -> loaded library; name -> {"seconds": ..., "log": nvcc's stderr}
+# name -> loaded library; name -> {"seconds": ..., "log": nvcc's stderr};
+# (name, C function) -> the function with its argument types set
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_INFO: Dict[str, Dict] = {}
+_ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
 
 
 def kernel_names() -> List[str]:
@@ -84,3 +86,15 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(_target(name)))
     return lib
+
+
+def entry(name: str, fn: str, argtypes: Sequence) -> Callable[..., int]:
+    """The C function ``fn`` of ``csrc/<name>.cu``'s library, its argument
+    types set and its result an int, looked up once: a call then converts
+    its arguments only."""
+    f = _ENTRIES.get((name, fn))
+    if f is None:
+        f = getattr(load(name), fn)
+        f.argtypes, f.restype = list(argtypes), ctypes.c_int
+        _ENTRIES[name, fn] = f
+    return f

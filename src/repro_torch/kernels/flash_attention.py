@@ -22,6 +22,10 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+# q, k, v, out, m, l; dtype, B, Sq, H, G, Sk, hd, causal, window; the
+# first three strides of q, k, v and out; scale; stream
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+             + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -72,11 +76,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     l = torch.empty_like(m)
     ptrs = [q, k, v, out, m, l]
     strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
-    fn = _build.load("flash_attention").flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 9
-                   + [ctypes.c_longlong] * len(strides)
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _build.entry("flash_attention", "flash_attention", _ARGTYPES)
     rc = fn(*[t.data_ptr() for t in ptrs],
             0 if q.dtype == torch.float32 else 1, B, Sq, H, H // Hk,
             Sk, hd, int(causal), window, *strides,

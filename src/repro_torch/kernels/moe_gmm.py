@@ -44,7 +44,6 @@ _ARGTYPES = {
                    + [ctypes.c_void_p]),
     "moe_gmm_tc_smem": [ctypes.c_int] * 2,
 }
-_FNS = {}
 
 
 @dataclass(frozen=True)
@@ -122,12 +121,7 @@ def gmm_plain(x, w):
 def _entry(name: str):
     """The C entry ``name`` of ``csrc/moe_gmm.cu`` with its argument types
     set (once: a call then converts its arguments only)."""
-    fn = _FNS.get(name)
-    if fn is None:
-        fn = getattr(_build.load("moe_gmm"), name)
-        fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
-        _FNS[name] = fn
-    return fn
+    return _build.entry("moe_gmm", name, _ARGTYPES[name])
 
 
 def gmm_cuda(x, w):

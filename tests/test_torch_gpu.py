@@ -331,6 +331,112 @@ def test_cuda_ssd_scan_rejects_what_it_does_not_take(cuda):
         ops.ssd_scan(*args, chunk=300)
 
 
+# the bf16 body runs on the tensor cores; its state is held ten times
+# closer than y (it is carried across chunks, calls and turns)
+SSD_H_TOL = TOL["bfloat16"] / 10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,N", [(64, 128), (32, 16)])
+@pytest.mark.parametrize("B", [1, 4])
+def test_cuda_ssd_scan_tc_matches_plain(cuda, hd, N, B):
+    """The bf16 tensor-core body against the plain version at both
+    instantiated widths, S from 1 to 1000 (one to four 256-row chunks,
+    tile edges on both sides of 16 and 256), with a tail of dt = 0 rows:
+    one launch a call, y within the bf16 tolerance, the state ten times
+    closer."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    gen = torch.Generator(device="cuda").manual_seed(hd + N + B)
+    for S in (1, 15, 16, 17, 64, 160, 256, 257, 1000):
+        args = ssd_inputs(gen, B, S, 8, hd, N, torch.bfloat16, pad=S // 5)
+        before = ops.LAUNCHES["ssd_scan"]
+        y, h = ops.ssd_scan(*args, chunk=256)
+        assert ops.LAUNCHES["ssd_scan"] == before + 1
+        yp, hp = ssd_scan_plain(*args, chunk=256)
+        torch.cuda.synchronize()
+        assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+        assert bool(torch.isfinite(y.float()).all())
+        assert _err(y, yp) <= TOL["bfloat16"], (S, _err(y, yp))
+        assert _err(h, hp) <= SSD_H_TOL, (S, _err(h, hp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S", [(1, 17), (2, 50), (1, 161)])
+def test_cuda_ssd_scan_tc_reads_nothing_past_the_last_row(cuda, B, S):
+    """x, dt, B and C at the front of allocations whose tails hold NaN (0 *
+    NaN is NaN): no product may take a row past the last, at S not a
+    multiple of 16."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    x, dt, A, Bm, Cm, h0 = ssd_inputs(gen, B, S, 8, 64, 128, torch.bfloat16)
+
+    def nan_tail(t):
+        buf = torch.full((t.numel() + 16384,), float("nan"), dtype=t.dtype,
+                         device="cuda")
+        buf[:t.numel()] = t.flatten()
+        return buf[:t.numel()].view(t.shape)
+    y, h = ops.ssd_scan(nan_tail(x), nan_tail(dt), A, nan_tail(Bm),
+                        nan_tail(Cm), h0, chunk=256)
+    yp, hp = ssd_scan_plain(x, dt, A, Bm, Cm, h0, chunk=256)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y.float()).all())
+    assert bool(torch.isfinite(h).all())
+    assert _err(y, yp) <= TOL["bfloat16"] and _err(h, hp) <= SSD_H_TOL
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_tc_carries_the_state_across_calls(cuda):
+    """160 rows and then 96 from the first call's state, against one call
+    of 256 (mamba2-780m widths)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x, dt, A, Bm, Cm, h0 = ssd_inputs(gen, 1, 256, 48, 64, 128,
+                                      torch.bfloat16)
+    y, h = ops.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=256)
+    part = lambda a, b: [t[:, a:b].contiguous() for t in (x, dt, Bm, Cm)]
+    x1, dt1, B1, C1 = part(0, 160)
+    x2, dt2, B2, C2 = part(160, 256)
+    y1, h1 = ops.ssd_scan(x1, dt1, A, B1, C1, h0, chunk=256)
+    y2, h2 = ops.ssd_scan(x2, dt2, A, B2, C2, h1, chunk=256)
+    torch.cuda.synchronize()
+    assert _err(torch.cat([y1, y2], dim=1), y) <= TOL["bfloat16"]
+    assert _err(h2, h) <= SSD_H_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_scan_padding_fence_resume_batch(cuda, dtype):
+    """The padding fence at the resume batch's shape (B 4, S 64,
+    mamba2-780m widths): rows 40-63 with dt = 0 leave the state and the
+    real rows' y bit for bit as a call of 40 rows."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x, dt, A, Bm, Cm, h0 = ssd_inputs(gen, 4, 64, 48, 64, 128,
+                                      getattr(torch, dtype))
+    fenced = dt.clone()
+    fenced[:, 40:] = 0
+    y, h = ops.ssd_scan(x, fenced, A, Bm, Cm, h0, chunk=256)
+    ys, hs = ops.ssd_scan(x[:, :40], dt[:, :40], A, Bm[:, :40],
+                          Cm[:, :40], h0, chunk=256)
+    torch.cuda.synchronize()
+    assert torch.equal(h, hs)
+    assert torch.equal(y[:, :40], ys)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,N", [(64, 128), (32, 16)])
+def test_cuda_ssd_scan_tc_plan_matches_the_card(cuda, hd, N):
+    """``tc_plan``'s shared memory is the kernel's, and the card keeps at
+    least the plan's blocks resident an SM: a mamba2-780m cold chunk's 192
+    blocks in one wave."""
+    from repro_torch.kernels.ssd_scan import tc_occupancy, tc_plan
+    plan = tc_plan(1, 48, hd, N)
+    smem, resident = tc_occupancy(hd, N)
+    assert smem == plan.smem_bytes
+    assert resident >= plan.resident_per_sm
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if (hd, N) == (64, 128):
+        assert plan.blocks >= 132 and plan.blocks <= resident * sms
+
+
 # ---------------------------------------------------------------------------
 # the MoE grouped matmul
 # ---------------------------------------------------------------------------
