@@ -40,7 +40,8 @@ failure:
              ``repro_torch.launch.serve``'s closed loop (4 agents, react,
              max_seq 8192) on the slab layout; every session must finish
              with all its tokens, the slab kernels' launch counts must be
-             > 0 and the paged kernels' 0.
+             > 0 and the paged kernels' 0.  Prefill parity covers chunks
+             of 1, 2, 4, 6 and 8 tokens: the spec verify's widths.
 7. profile — the slice engine's own forwards (a K=8 decode megastep, a
              cold chunk, a resume batch): wall time, device time and
              device time by kernel from ``torch.profiler``.
@@ -49,6 +50,27 @@ failure:
              ``--kv-layout paged``, its paged kernels' launch counts must
              be > 0 and the slab kernels' 0, and it prints the pool's
              prefix hits, partial hits, page copies and peak pages.
+
+Speculative decode (n-gram draft and multi-query verify, ``spec_k`` 4;
+the verify reads the cache through kernel 1 or 4 at Sq = k):
+
+11a. identity_spec and its paged twin — phase 5's f32 identity check
+             with ``spec_k=4``: every stream equals the isolated greedy
+             oracle (a mismatch prints the oracle's top-2 margin), spec
+             steps > 0; the counters and launch counts are printed.
+11b. slice_spec — phase 6's slice through ``--spec-k 4``: every session
+             finishes, the slab kernels launch and the paged ones do not,
+             spec steps > 0; prints the report row, spec steps, proposed
+             and accepted drafts, the acceptance rate and tokens per
+             model call.
+11c. profile_spec — one spec step at K = 4 over the slice's 6 lanes at
+             3500 rows (after a direct call shows it launches kernel 1
+             once per layer and nothing else), beside the K=8 megastep.
+11d. identity_spec_hybrid — the small hybrid (f32, slab, ``chunked``):
+             spec-on streams equal spec-off streams; one step called
+             directly launches kernel 7 twice per Mamba-2 layer and kernel
+             1 twice per attention layer (the verify and the fenced
+             re-run at the accepted length).
 
 Mamba-2 (the SSD chunked scan, ``ssd_scan``):
 
@@ -189,7 +211,13 @@ Training (kernel 9, whole-sequence flash attention, under the
              launches; the loss falls; then one profiled step's device
              time split into kernel 9, the attention backward, the MLP and
              projection matmuls, the logits and CE, the optimizer and the
-             rest.
+             rest.  ``timing_flash`` gives kernel 9's profiler device time
+             beside its CUDA-event time.
+26. forward_testbed — the paper's Qwen2.5-7B and Llama3-8B at full
+             width and depth in bf16 (random weights): one 160-token cold
+             chunk at offset 3000 (finite logits) and one K=8 megastep over
+             6 lanes of 8192 rows, wall and device time, top kernels and
+             peak memory.
 
 The last lines are the kernel list, the nvidia-smi line, the kernel JSON
 line and the result JSON line.
@@ -216,6 +244,7 @@ PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SLICE_TOKEN_SCALE = 1.0
 PAGE = 64
+SPEC_K = 4                       # draft-and-verify width of the spec phases
 SLAB_KERNELS = ("flash_prefill", "flash_decode")
 PAGED_KERNELS = ("flash_prefill_paged", "flash_decode_paged")
 SSM_KERNELS = ("ssd_scan",)
@@ -317,8 +346,9 @@ def _max_err(a, b):
 # Qwen2.5-3B, SmolLM-360M and OLMoE-1B-7B heads (H, Hk, hd): query
 # groups 8, 3 and 1
 PARITY_HEADS = ((16, 2, 128), (15, 5, 64), (16, 16, 128))
-# prefill chunk lengths: spec-verify blocks (1..8), resumes, cold chunks
-PARITY_SQ = (1, 2, 8, 16, 56, 160, 320)
+# prefill chunk lengths: spec-verify blocks (1 and every even spec level
+# up to 8), resumes, cold chunks
+PARITY_SQ = (1, 2, 4, 6, 8, 16, 56, 160, 320)
 
 
 def phase_parity():
@@ -1271,16 +1301,24 @@ def free_device_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_identity(paged: bool, arch: str = "qwen2.5-3b"):
+def phase_identity(paged: bool, arch: str = "qwen2.5-3b", spec_k: int = 0):
     """f32 engine streams == the isolated greedy oracle (the engine's
-    default ``moe_mode`` "dense", which keeps lanes independent)."""
+    default ``moe_mode`` "dense", which keeps lanes independent).
+    ``spec_k``: the engine decodes by draft-and-verify (identity_spec);
+    its spec steps must be > 0, and its launch counts are logged.  A
+    second leg then serves agents whose prompts drive the random model's
+    greedy stream into a repeating attractor (``attractor_tokens``), so
+    drafts are accepted (> 0) and rolled back, streams equal to the
+    oracle."""
     from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models import init_params
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.serving.oracle import oracle_streams
     from repro_torch.serving.workload import make_workload
     torch.backends.cuda.matmul.allow_tf32 = False       # full f32 products
-    tag = ("identity_moe" if arch == "olmoe-1b-7b" else "identity") + (
+    tag = ("identity_moe" if arch == "olmoe-1b-7b" else
+           "identity_spec" if spec_k else "identity") + (
         "_paged" if paged else "")
     full = get_config(arch)
     cfg = dataclasses.replace(full, num_layers=4,
@@ -1294,40 +1332,182 @@ def phase_identity(paged: bool, arch: str = "qwen2.5-3b"):
     kw = dict(num_slots=5, max_seq=2048)
     ecfg = EngineConfig(cycle_budget=160, granularity=16,
                         control_interval_s=0.1, autotune_chunks=False,
-                        record_events=True, moe_mode="dense", **kw)
+                        record_events=True, moe_mode="dense", spec_k=spec_k,
+                        **kw)
+
+    def serve(mk):
+        """Run the engine on ``mk()``'s sessions; every stream must equal
+        the oracle's.  Returns (engine, report, streams, launches)."""
+        eng = ServingEngine(cfg, params, "agentserve", ecfg,
+                            dtype=torch.float32, device="cuda")
+        sessions = mk()
+        ops.reset_launches()
+        rep = eng.run(sessions)
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        streams = {}
+        for ev in eng.event_log:
+            streams.setdefault(ev.session_id, []).append(ev.token)
+        oracle = oracle_streams(cfg, params, mk(), dtype=torch.float32,
+                                device="cuda", **kw)
+        for s in sessions:
+            want = sum(t.decode_len for t in s.turns)
+            assert s.output_tokens() == want, (s.session_id,
+                                               s.output_tokens())
+            got = streams[s.session_id]
+            if got != oracle[s.session_id]:
+                step, m = first_divergence_margin(cfg, params, s, got, kw)
+                raise AssertionError(
+                    f"{tag}: session {s.session_id} leaves the oracle at "
+                    f"step {step}; the oracle's top-2 logit margin there is "
+                    f"{m:.3e}")
+        return eng, rep, streams, launches
+
     # paged: seed 9's second agent cuts the system prompt shorter than the
     # first (a radix hit inside a registered prefix), its third longer (a
     # partial hit)
-    mk = lambda: make_workload(3, workload="react",
-                               vocab_size=cfg.vocab_size, token_scale=0.25,
-                               seed=9 if paged else 3)
-    eng = ServingEngine(cfg, params, "agentserve", ecfg,
-                        dtype=torch.float32, device="cuda")
-    sessions = mk()
-    rep = eng.run(sessions)
-    streams = {}
-    for ev in eng.event_log:
-        streams.setdefault(ev.session_id, []).append(ev.token)
-    oracle = oracle_streams(cfg, params, mk(), dtype=torch.float32,
-                            device="cuda", **kw)
-    for s in sessions:
-        want = sum(t.decode_len for t in s.turns)
-        assert s.output_tokens() == want, (s.session_id, s.output_tokens())
-        got = streams[s.session_id]
-        if got != oracle[s.session_id]:
-            step, m = first_divergence_margin(cfg, params, s, got, kw)
-            raise AssertionError(
-                f"{tag}: session {s.session_id} leaves the oracle at step "
-                f"{step}; the oracle's top-2 logit margin there is {m:.3e}")
+    eng, rep, streams, launches = serve(lambda: make_workload(
+        3, workload="react", vocab_size=cfg.vocab_size, token_scale=0.25,
+        seed=9 if paged else 3))
     extra = ""
     if paged:
         st = eng.pool.stats
         extra = (f" | prefix_hits={st['prefix_hits']} "
                  f"partial_hits={st['prefix_partial_hits']} "
                  f"page_copies={st['page_copies']}")
-    log(f"[{tag}] {len(sessions)} sessions, "
+    if spec_k:
+        assert eng.hotpath_stats["spec_steps"] > 0, (tag, "no spec step")
+        extra += f" | {spec_line(eng)} | launches={launches}"
+    log(f"[{tag}] {len(streams)} sessions, "
         f"{sum(len(v) for v in streams.values())} tokens equal the "
         f"isolated greedy oracle | {rep.row()}{extra}")
+    if spec_k:
+        toks = attractor_tokens(cfg, params, 3)
+        eng, rep, streams, _ = serve(
+            lambda: repetition_sessions(toks))
+        hs = eng.hotpath_stats
+        assert hs["spec_accepted"] > 0, (tag, "no draft accepted", toks)
+        assert hs["spec_accepted"] < hs["spec_proposed"], (tag, "no rollback")
+        log(f"[{tag}] repetition leg (constant prompts of tokens {toks}): "
+            f"{sum(len(v) for v in streams.values())} tokens equal the "
+            f"isolated greedy oracle | {rep.row()} | {spec_line(eng)}")
+    del eng, params
+    free_device_memory()
+
+
+def attractor_tokens(cfg, params, n: int):
+    """Prompt tokens whose constant runs drive a random model's greedy
+    stream into a repeating attractor: greedy decode from 32 constant
+    64-token prompts in one batch, and the ``n`` prompt tokens whose
+    streams most often repeat a token three times running."""
+    from repro_torch.models import forward_decode, forward_prefill, init_cache
+    cfg = dataclasses.replace(cfg, kv_layout="slab")
+    cands = np.linspace(0, cfg.vocab_size - 1, 32).astype(np.int32)
+    B, plen, steps = len(cands), 64, 32
+    dtype = params["final_norm"].dtype
+    cache = init_cache(cfg, B, 128, dtype, "cuda")
+    prompts = torch.tensor(np.repeat(cands[:, None], plen, 1), device="cuda")
+    lengths = torch.zeros(B, dtype=torch.int32, device="cuda")
+    logits, cache, lengths = forward_prefill(params, cfg, prompts, cache,
+                                             lengths)
+    out = []
+    for _ in range(steps):
+        toks = logits.argmax(-1).to(torch.int32)
+        out.append(toks)
+        logits, cache, lengths = forward_decode(params, cfg, toks, cache,
+                                                lengths)
+    S = torch.stack(out, 1).cpu().numpy()
+    runs = ((S[:, 2:] == S[:, 1:-1]) & (S[:, 1:-1] == S[:, :-2])).mean(1)
+    return [int(cands[i]) for i in np.argsort(-runs, kind="stable")[:n]]
+
+
+def repetition_sessions(tokens):
+    """One agent per token: a 64-token prompt of that token, a 40-token
+    burst, then a 16-token resume of it and another burst."""
+    from repro_torch.serving.request import AgentTurn, Session
+    return [Session(session_id=i, turns=[
+        AgentTurn(np.full(64, t, np.int32), 40, 0.05),
+        AgentTurn(np.full(16, t, np.int32), 40, 0.0)])
+        for i, t in enumerate(tokens)]
+
+
+def spec_line(eng) -> str:
+    """The engine's speculative-decode counters, one log fragment."""
+    hs = eng.hotpath_stats
+    return (f"spec_steps={hs['spec_steps']} "
+            f"spec_proposed={hs['spec_proposed']} "
+            f"spec_accepted={hs['spec_accepted']} "
+            f"spec_acceptance_rate={eng.stats()['spec_acceptance_rate']:.4f} "
+            f"tokens_per_model_call={eng.tokens_per_model_call():.4f}")
+
+
+def phase_identity_spec_hybrid():
+    """Spec-on engine streams == spec-off (f32, the small hybrid, slab,
+    fixed-chunk ``chunked`` policy): a hybrid's stream is
+    schedule-independent only up to its SSD chunk boundaries, so the
+    reference is the same engine without speculation.  Then one step,
+    called directly on the engine's cache, shows the fenced re-run:
+    kernel 7 launches twice per Mamba-2 layer (the verify, then the
+    re-run at the accepted length) and kernel 1 twice per attention
+    layer."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward_spec_step, init_params
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.workload import make_workload
+    torch.backends.cuda.matmul.allow_tf32 = False       # full f32 products
+    tag = "identity_spec_hybrid"
+    cfg = hybrid_config()
+    log(f"[{tag}] {cfg.name}: d_model {cfg.d_model}, {cfg.num_layers} "
+        f"layers (attention + Mamba-2), float32, slab, chunked, "
+        f"spec_k={SPEC_K}")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         torch.float32)
+    kw = dict(num_slots=5, max_seq=2048)
+
+    def run(spec_k):
+        ecfg = EngineConfig(cycle_budget=160, granularity=16,
+                            control_interval_s=0.1, autotune_chunks=False,
+                            record_events=True, spec_k=spec_k, **kw)
+        eng = ServingEngine(cfg, params, "chunked", ecfg,
+                            dtype=torch.float32, device="cuda")
+        sessions = make_workload(3, workload="react",
+                                 vocab_size=cfg.vocab_size, token_scale=0.25,
+                                 seed=3)
+        rep = eng.run(sessions)
+        streams = {}
+        for ev in eng.event_log:
+            streams.setdefault(ev.session_id, []).append(ev.token)
+        for s in sessions:
+            want = sum(t.decode_len for t in s.turns)
+            assert s.output_tokens() == want, (tag, spec_k, s.session_id)
+        return eng, streams, rep
+
+    _, off, _ = run(0)
+    eng, on, rep = run(SPEC_K)
+    for sid, want in off.items():
+        got = on[sid]
+        if got != want:
+            step = next((i for i, (a, b) in enumerate(zip(got, want))
+                         if a != b), min(len(got), len(want)))
+            raise AssertionError(f"{tag}: session {sid}'s spec-on stream "
+                                 f"leaves the spec-off stream at step {step}")
+    assert eng.hotpath_stats["spec_steps"] > 0, (tag, "no spec step")
+    B = kw["num_slots"]
+    n_ssm = sum(cfg.layer_kind(j) == "ssm" for j in range(cfg.num_layers))
+    lanes = torch.ones(B, dtype=torch.bool, device="cuda")
+    ops.reset_launches()
+    forward_spec_step(params, cfg,
+                      torch.zeros((B, kw["max_seq"]), dtype=torch.int32,
+                                  device="cuda"),
+                      _i32([0] * B), eng.pool.cache, _i32([100] * B), lanes,
+                      num_draft=SPEC_K)
+    torch.cuda.synchronize()
+    one = dict(ops.LAUNCHES)
+    assert one["ssd_scan"] == 2 * n_ssm, one
+    assert one["flash_prefill"] == 2 * (cfg.num_layers - n_ssm), one
+    log(f"[{tag}] spec-on == spec-off for {len(off)} sessions, "
+        f"{sum(len(v) for v in off.values())} tokens | {rep.row()} | "
+        f"{spec_line(eng)} | one step: ssd_scan x{one['ssd_scan']}, "
+        f"flash_prefill x{one['flash_prefill']} (verify + fenced re-run)")
     del eng, params
     free_device_memory()
 
@@ -1452,14 +1632,18 @@ def phase_identity_ssm(hybrid: bool):
     free_device_memory()
 
 
-def phase_slice(paged: bool, arch: str = "qwen2.5-3b"):
+def phase_slice(paged: bool, arch: str = "qwen2.5-3b", spec_k: int = 0):
+    """``spec_k``: the launcher's ``--spec-k`` (slice_spec); the engine's
+    spec steps must be > 0, and its counters are logged."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     ssm, moe = arch == "mamba2-780m", arch == "olmoe-1b-7b"
-    tag = ("slice_ssm" if ssm else "slice_moe" if moe else "slice") + (
-        "_paged" if paged else "")
+    tag = ("slice_ssm" if ssm else "slice_moe" if moe else
+           "slice_spec" if spec_k else "slice") + ("_paged" if paged else "")
     layout = (["--kv-layout", "paged", "--kv-page-size", str(PAGE)]
               if paged else [])
+    if spec_k:
+        layout += ["--spec-k", str(spec_k)]
     args = serve.parse_args([
         "--full", "--arch", arch, "--agents", "4",
         "--workload", "react", "--max-seq", "8192",
@@ -1498,6 +1682,11 @@ def phase_slice(paged: bool, arch: str = "qwen2.5-3b"):
     prompt = sum(len(t.prefill_tokens) for s in sessions for t in s.turns)
     log(f"[{tag}] {serve.ServingReport.HEADER}")
     log(f"[{tag}] {rep.row()}")
+    if spec_k:
+        assert eng.hotpath_stats["spec_steps"] > 0, (tag, "no spec step")
+        log(f"[{tag}] {spec_line(eng)} "
+            f"megasteps={eng.hotpath_stats['megasteps']} "
+            f"fused_steps={eng.hotpath_stats['fused_steps']}")
     st = eng.pool.stats
     if paged:
         log(f"[{tag}] pool: prefix_hits={st['prefix_hits']} "
@@ -1537,8 +1726,6 @@ def phase_profile(eng, paged: bool, tag: str = "profile",
     torch.profiler over the device alone (time by kernel, busy share).
     Paged: every slot maps its own pages, in order.  ``moe_mode``: the
     MoE FFN path of the forwards (the engine's is "dense")."""
-    from repro_torch.models import (forward_decode_megastep,
-                                    forward_prefill, forward_resume_batch)
     cfg, params, cache = eng.mcfg, eng.params, eng.pool.cache
     B = eng.ecfg.num_slots
     i32 = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
@@ -1550,8 +1737,19 @@ def phase_profile(eng, paged: bool, tag: str = "profile",
                           device="cuda").reshape(B, pmax)
         one = {"block_tables": bt[:1]}
     one["moe_mode"] = moe_mode
-    work = {
-        "decode megastep K=8, 6 lanes at 3500 rows": lambda: (
+    profile_work(tag, forward_work(cfg, params, cache, B, bt, one, moe_mode))
+
+
+def forward_work(cfg, params, cache, B: int, bt, one, moe_mode: str):
+    """The profiled forwards over a serving cache of ``B`` slots (``bt``:
+    the paged layout's tables; ``one``: how the cold chunk names its
+    slot): a K=8 decode megastep over every lane at 3500 rows, a 160-token
+    cold chunk at offset 3000, a 4 x 64 resume batch."""
+    from repro_torch.models import (forward_decode_megastep,
+                                    forward_prefill, forward_resume_batch)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
+    return {
+        f"decode megastep K=8, {B} lanes at 3500 rows": lambda: (
             forward_decode_megastep(params, cfg, i32([0] * B), cache,
                                     i32([3500] * B),
                                     torch.ones(B, dtype=torch.bool,
@@ -1570,7 +1768,73 @@ def phase_profile(eng, paged: bool, tag: str = "profile",
                                  i32([63] * 4), block_tables=bt,
                                  moe_mode=moe_mode)),
     }
-    profile_work(tag, work)
+
+
+def phase_profile_spec(eng):
+    """One draft-and-verify step at K = 4 over the slice_spec engine's 6
+    lanes at 3500 rows, beside the K=8 megastep the plain path runs
+    there: wall, device time and top kernels.  A direct call first shows
+    that the verify runs kernel 1 once per layer and no decode kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward_spec_step
+    cfg, params, cache = eng.mcfg, eng.params, eng.pool.cache
+    B = eng.ecfg.num_slots
+    hist = torch.zeros((B, eng.ecfg.max_seq), dtype=torch.int32,
+                       device="cuda")
+    lanes = torch.ones(B, dtype=torch.bool, device="cuda")
+    spec = lambda: forward_spec_step(params, cfg, hist, _i32([0] * B), cache,
+                                     _i32([3500] * B), lanes,
+                                     num_draft=SPEC_K,
+                                     ngram=eng.ecfg.spec_ngram)
+    ops.reset_launches()
+    spec()
+    torch.cuda.synchronize()
+    one = {k: v for k, v in ops.LAUNCHES.items() if v}
+    assert one == {"flash_prefill": cfg.num_layers}, one
+    work = {f"spec step K={SPEC_K}, {B} lanes at 3500 rows": spec}
+    mega = forward_work(cfg, params, cache, B, None, {}, "dense")
+    work.update((k, v) for k, v in mega.items() if "megastep" in k)
+    profile_work("profile_spec", work)
+
+
+def phase_forward_testbed():
+    """The paper's dense testbed models at full width and depth in bf16,
+    random weights: one 160-token cold chunk at offset 3000 and one K=8
+    decode megastep over 6 lanes of 8192 rows (wall, device time, top
+    kernels, peak memory); the chunk's logits must be finite."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import forward_prefill, init_cache, init_params
+    B = 6
+    for arch in ("qwen2.5-7b", "llama3-8b"):
+        cfg = get_config(arch)
+        tag = f"forward_testbed {arch}"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             torch.bfloat16)
+        cache = init_cache(cfg, B, 8192, torch.bfloat16, "cuda")
+        torch.cuda.synchronize()
+        nbytes = lambda tree: sum(
+            nbytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+            for v in tree.values())
+        log(f"[{tag}] {cfg.num_layers} layers, d_model {cfg.d_model}, heads "
+            f"{cfg.num_heads}/{cfg.num_kv_heads}/{cfg.head_dim}, bf16: "
+            f"weights {nbytes(params) / 1e9:.2f} GB, cache {B} x 8192 rows "
+            f"{nbytes(cache) / 1e9:.2f} GB, made in "
+            f"{time.perf_counter() - t0:.1f} s")
+        logits, _, _ = forward_prefill(
+            params, cfg, torch.zeros((1, 160), dtype=torch.int32,
+                                     device="cuda"), cache, _i32([3000]),
+            slot_idx=_i32([0]))
+        assert torch.isfinite(logits.float()).all(), (tag, "logits")
+        work = forward_work(cfg, params, cache, B, None,
+                            {"slot_idx": _i32([0])}, "dense")
+        profile_work(tag, {k: v for k, v in work.items()
+                           if "resume" not in k})
+        log(f"[{tag}] max_memory_allocated_GB="
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        del params, cache, logits
+        free_device_memory()
 
 
 def profile_work(tag: str, work) -> None:
@@ -2214,6 +2478,8 @@ def phase_timing_flash():
             bound, by = _bound_ms(flops, nbytes, dtype)
             r = dict(
                 ms=_time_ms(lambda: ops.flash_attention(q, k, v), iters=20),
+                device_ms=_device_ms(lambda: ops.flash_attention(q, k, v),
+                                     iters=20),
                 plain_ms=_time_ms(lambda: flash_attention_plain(q, k, v),
                                   iters=5, warmup=1),
                 library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
@@ -2221,7 +2487,8 @@ def phase_timing_flash():
                 bound_ms=bound, bound_by=by)
             log(f"[timing_flash] {arch} heads {H}/{Hk}/{hd} "
                 f"{str(dtype)[6:]} B={B} S={S} causal: kernel_ms="
-                f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} sdpa_ms="
+                f"{r['ms']:.4f} device_ms={r['device_ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} sdpa_ms="
                 f"{r['library_ms']:.4f} bound_ms={bound:.5f} ({by}) "
                 f"tflops={flops / r['ms'] / 1e9:.2f}")
             if arch == "smollm-360m" and dtype == torch.float32:
@@ -2517,8 +2784,16 @@ def main() -> int:
     del eng
     free_device_memory()
     stamp("Qwen2.5-3B slices")
+    phase_identity(paged=False, spec_k=SPEC_K)
+    phase_identity(paged=True, spec_k=SPEC_K)
+    _, eng = phase_slice(paged=False, spec_k=SPEC_K)
+    phase_profile_spec(eng)
+    del eng
+    free_device_memory()
+    stamp("speculative decode")
     phase_identity_ssm(hybrid=False)
     phase_identity_ssm(hybrid=True)
+    phase_identity_spec_hybrid()
     launches_ssm, eng = phase_slice(paged=False, arch="mamba2-780m")
     phase_profile(eng, paged=False, tag="profile_ssm")
     del eng
@@ -2543,6 +2818,8 @@ def main() -> int:
     phase_identity_train()
     launches_train = phase_slice_train()
     stamp("training slice")
+    phase_forward_testbed()
+    stamp("testbed forwards")
     # each kernel's launches are those of the slice that runs its path
     # (the scan: the slab Mamba-2 slice; its paged twin's count is in the
     # slice_ssm_paged line; the grouped matmul: slice_moe; the int8

@@ -133,12 +133,18 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     )
 
 
-# Architectures the port runs (dense decoders: the paper's testbed model
-# and the smallest smoke architecture; the attention-free Mamba-2 SLM;
-# the MoE decoders and the Jamba hybrid with MoE).
+# Architectures the port runs (dense decoders: the paper's testbed models
+# Qwen2.5-3B/7B and Llama3-8B, the other dense configs and the smallest
+# smoke architecture; the attention-free Mamba-2 SLM; the MoE decoders
+# and the Jamba hybrid with MoE).
 ARCH_MODULES = {
     "smollm-360m": "smollm_360m",
     "qwen2.5-3b": "qwen2_5_3b",
+    "qwen2.5-7b": "qwen2_5_7b",
+    "llama3-8b": "llama3_8b",
+    "llama3.2-3b": "llama3_2_3b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "starcoder2-15b": "starcoder2_15b",
     "mamba2-780m": "mamba2_780m",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "mixtral-8x22b": "mixtral_8x22b",
@@ -146,11 +152,7 @@ ARCH_MODULES = {
 }
 
 # Architectures of the JAX package that the port does not run yet.
-NOT_PORTED = {
-    "hubert-xlarge": "audio", "qwen2-vl-7b": "vlm",
-    "starcoder2-15b": "dense", "llama3.2-3b": "dense",
-    "phi4-mini-3.8b": "dense", "qwen2.5-7b": "dense", "llama3-8b": "dense",
-}
+NOT_PORTED = {"hubert-xlarge": "audio", "qwen2-vl-7b": "vlm"}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -6,7 +6,8 @@ Closed loop: boots an AgentServe engine for the selected architecture
 per-policy report row.  Runs on the CUDA card unless ``--device cpu`` is
 given; weights are random, drawn on the device from ``--seed``.
 ``--kv-layout paged`` serves from the page arena with the radix (or
-exact) prefix cache.  The online gateway (``--serve``) is not ported yet.
+exact) prefix cache; ``--spec-k K`` decodes by n-gram draft and
+multi-query verify, up to K tokens per lane a forward.  The online gateway (``--serve``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ def build_engine(args, policy: str) -> Tuple[ServingEngine, object]:
     ecfg = EngineConfig(num_slots=args.num_slots or max(args.agents + 2, 6),
                         max_seq=args.max_seq, cycle_budget=160,
                         granularity=16, control_interval_s=0.1,
-                        prefix_cache=args.prefix_cache)
+                        prefix_cache=args.prefix_cache, spec_k=args.spec_k)
     return ServingEngine(cfg, params, PLANNERS[policy], ecfg, dtype=dtype,
                          device=device), cfg
 
@@ -100,6 +101,10 @@ def parse_args(argv=None):
                     help="paged prefix index: radix = longest match over "
                          "token ids (partial hits, tree-aware eviction); "
                          "exact = whole-key store")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decode width: 0 disables; >= 2 drafts "
+                         "K - 1 tokens by n-gram prompt lookup and verifies "
+                         "them in one forward (greedy-identical)")
     ap.add_argument("--full", action="store_true",
                     help="the architecture's full published config instead "
                          "of its reduced smoke variant")

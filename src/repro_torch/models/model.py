@@ -28,6 +28,9 @@ Public entry points:
                                     device-resident (no host sync)
   forward_decode_megastep         — K fused decode steps
   forward_resume_batch            — M resume prefills packed in one call
+  forward_spec_step               — n-gram draft + one multi-query verify
+                                    (``forward_spec_verify``), accepting
+                                    the longest greedy-matching prefix
   forward_train / forward_cold    — whole sequences with no cache,
                                     differentiable (dense decoders)
 
@@ -495,3 +498,153 @@ def forward_resume_batch(params, cfg: ModelConfig, tokens, cache, slot_idx,
         params, cfg, tokens, cache, lengths, logit_idx=logit_idx,
         slot_idx=slot_idx, block_tables=bt, moe_mode=moe_mode)
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# speculative decode: n-gram draft + multi-query verify
+# ---------------------------------------------------------------------------
+
+
+def _ngram_draft(history, tokens, lengths, *, num_draft: int, ngram: int):
+    """Device-resident prompt-lookup proposer.
+
+    history: [B, S] int32, ``history[b, p]`` the token *input* at
+    position ``p`` (prompt tokens, then each emitted token as it becomes
+    the next step's input), valid for ``p < lengths[b]``; tokens: [B]
+    (the pending input t0, not yet in history); lengths: [B].
+
+    Finds the most recent position ``j < lengths`` where the ``ngram``
+    tokens ending at ``j`` equal the ``ngram`` tokens ending at the
+    frontier (t0 inclusive), and proposes the ``num_draft - 1`` tokens
+    that followed it.  Lanes with no match (or too short a history)
+    propose t0 repeated, which the verify rejects.  Gathers and selects
+    only: no host read, no loop over lanes.  Returns the verify input
+    x [B, num_draft] = [t0, d_1 .. d_{k-1}]."""
+    B, S = history.shape
+    k = num_draft
+    if k == 1:
+        return tokens[:, None]
+    dev = history.device
+    # frontier-inclusive sequence: t0 placed at its position
+    seq = history.scatter(1, torch.clamp(lengths, 0, S - 1).long()[:, None],
+                          tokens[:, None].to(history.dtype))
+    ar = torch.arange(S, device=dev, dtype=lengths.dtype)[None, :]
+    L = lengths[:, None]
+    # pattern: the ngram ending at the frontier, per lane
+    pat_idx = L - (ngram - 1) + torch.arange(ngram, device=dev,
+                                             dtype=lengths.dtype)[None, :]
+    pat = torch.gather(seq, 1, torch.clamp(pat_idx, 0, S - 1).long())
+    ok = torch.ones((B, S), dtype=torch.bool, device=dev)
+    for i in range(ngram):
+        src = ar + (i - (ngram - 1))              # pattern element i at j
+        ok &= (src >= 0) & (seq[:, torch.clamp(src[0], 0, S - 1).long()]
+                            == pat[:, i: i + 1])
+    # j == lengths is the trivial self-match; a full pattern is required,
+    # and the k - 1 continuation tokens after j must lie within known
+    # history (<= the frontier, where seq holds t0)
+    ok &= (ar < L) & (L >= ngram - 1)
+    ok &= ar <= L - (k - 1)
+    jstar = torch.where(ok, ar, torch.full_like(ar, -1)).amax(dim=1)
+    src = jstar[:, None] + 1 + torch.arange(k - 1, device=dev,
+                                            dtype=jstar.dtype)[None, :]
+    drafts = torch.gather(seq, 1, torch.clamp(src, 0, S - 1).long())
+    drafts = torch.where(jstar[:, None] >= 0, drafts,
+                         tokens[:, None].to(drafts.dtype))
+    return torch.cat([tokens[:, None].to(drafts.dtype), drafts], dim=1)
+
+
+def forward_spec_verify(params, cfg: ModelConfig, x, cache, lengths, active,
+                        ssm_valid, *, block_tables=None, moe_mode: str = "gmm",
+                        state_active=None):
+    """Multi-query verify forward: score ``x`` [B, k] at positions
+    ``lengths .. lengths + k - 1`` through the prefill attention entries
+    (kernel 1 on the slab, kernel 4 paged, at Sq = k), writing the draft
+    K/V rows in place as it goes (per-row scatter; inactive lanes write
+    at -1, the scratch row or scratch page).  ``ssm_valid`` [B]: the
+    Mamba-2 fence (positions at or past it leave the state unchanged);
+    ``state_active`` [B] bool: the lanes whose Mamba-2 states are written
+    back (default ``active``; all False reads the states and writes none).
+    Returns (logits [B, k, vocab], cache): *all* per-position logits; the
+    accept rule consumes only rows below the accepted length."""
+    emb = params["embed"][x]
+    k = emb.shape[1]
+    positions = lengths[:, None] + torch.arange(
+        k, device=emb.device, dtype=lengths.dtype)[None, :]
+    write_positions = torch.where(active[:, None], positions,
+                                  torch.full_like(positions, -1))
+    h = _run_layers(params, emb, cfg, mode="prefill", positions=positions,
+                    lengths=lengths, cache=cache, window=cfg.sliding_window,
+                    write_positions=write_positions,
+                    block_tables=block_tables,
+                    active=active if state_active is None else state_active,
+                    ssm_valid=ssm_valid, moe_mode=moe_mode)
+    return _logits(params, cfg, h), cache
+
+
+def forward_spec_step(params, cfg: ModelConfig, history, tokens, cache,
+                      lengths, active, *, num_draft: int, ngram: int = 3,
+                      block_tables=None, moe_mode: str = "gmm"):
+    """One speculative decode step: draft ``num_draft - 1`` tokens by
+    prompt lookup, verify all ``num_draft`` positions in one forward,
+    accept the longest greedy-matching prefix, and leave the cache
+    consistent at the accepted frontier.
+
+    Greedy identity by construction: position 0's argmax is the
+    non-speculative next token, and draft position i is consumed only
+    when the drafts at 1..i all matched the argmaxes at 0..i-1.  Rejected
+    rows' K/V writes land beyond the new length (slab: fenced by
+    ``lengths``; paged: the host truncates the block table).  On a cache
+    with Mamba-2 states the verify writes none, and a fenced re-run at
+    the accepted length (``ssm_valid = acc``) writes them: positions
+    below the fence recompute bit for bit, positions at or past it leave
+    the state unchanged.  The JAX package skips that re-run when every
+    lane accepted everything; here it always runs, because the choice
+    would read ``acc`` on the host and sync the stream.
+
+    ``history`` [B, S_hist] is updated in place: this step's *inputs* (t0
+    at ``lengths``, then the accepted drafts; the bonus token is the next
+    step's t0).  Returns (toks [k, B], accepts [B], next_tokens [B],
+    history, cache, new_lengths); ``toks[i, b]`` is valid for
+    ``i < accepts[b]`` (padding repeats the lane's next token).
+    Inactive lanes: accepts 0; token, length, history and state
+    unchanged."""
+    k = num_draft
+    S_hist = history.shape[1]
+    x = _ngram_draft(history, tokens, lengths, num_draft=k, ngram=ngram)
+    kfull = torch.where(active, torch.full_like(lengths, k),
+                        torch.zeros_like(lengths))
+    stateful = any(not set(layer) <= POSITIONAL_CACHE_KEYS
+                   for layer in cache.values())
+    logits, cache = forward_spec_verify(
+        params, cfg, x, cache, lengths, active, kfull,
+        block_tables=block_tables, moe_mode=moe_mode,
+        state_active=torch.zeros_like(active) if stateful else None)
+    g = torch.argmax(logits, dim=-1).to(torch.int32)               # [B, k]
+    if k > 1:
+        matches = (x[:, 1:] == g[:, :-1]).to(torch.int32)
+        acc = 1 + torch.cumprod(matches, dim=1).sum(dim=1, dtype=torch.int32)
+    else:
+        acc = torch.ones_like(lengths)
+    acc = torch.where(active, acc, torch.zeros_like(acc)).to(lengths.dtype)
+    next_tokens = torch.gather(
+        g, 1, torch.clamp(acc - 1, min=0).long()[:, None])[:, 0]
+    next_tokens = torch.where(active, next_tokens, tokens)
+    new_lengths = lengths + acc
+
+    # history gains this step's inputs; unwanted rows go to the last
+    # history row (scratch: the engine's k-cap keeps real content out of
+    # it) and rewrite the value it holds, so the row stays as it was
+    offs = torch.arange(k, device=x.device, dtype=lengths.dtype)[None, :]
+    keep = offs < acc[:, None]
+    pos_h = torch.where(keep, lengths[:, None] + offs,
+                        torch.full_like(keep, S_hist - 1, dtype=lengths.dtype))
+    scratch = history[:, S_hist - 1:].expand(-1, k)
+    history.scatter_(1, pos_h.long(),
+                     torch.where(keep, x.to(history.dtype), scratch))
+
+    if stateful:
+        _, cache = forward_spec_verify(
+            params, cfg, x, cache, lengths, active, acc,
+            block_tables=block_tables, moe_mode=moe_mode)
+    toks = torch.where(keep, g, next_tokens[:, None]).T           # [k, B]
+    return toks, acc, next_tokens, history, cache, new_lengths

@@ -26,7 +26,10 @@ memory asynchronously behind a CUDA event, and the host only waits at
 *flush points* (control-interval boundaries, burst completions and every
 ``telemetry_sample_steps`` steps).  When both queues are empty and no
 control update is due, up to K decode iterations run as one *megastep*
-drawn from a pre-established grid.  Resume prefills from Q_D are packed
+drawn from a pre-established grid, or, with ``spec_k``, one
+draft-and-verify step (``forward_spec_step``) scores up to K drafted
+tokens per lane in one forward; its host mirrors advance only at the
+flush, when the accept counts are read.  Resume prefills from Q_D are packed
 M-at-a-time into one [M, bucket] batched call that reads and writes the
 shared cache in place through per-row slot indices.
 
@@ -59,15 +62,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.admission import AdmissionQueues, Job
 from repro_torch.core.phases import Phase, PhaseThresholds
-from repro_torch.core.planner import (Admission, ColdOp, CyclePlan,
-                                      CyclePlanner, CycleRecord, EngineView,
-                                      JobView, PlanJournal, ResumePlan,
-                                      SessionView)
+from repro_torch.core.planner import (SPEC_EMA_RECOVERY, Admission,
+                                      ColdOp, CyclePlan, CyclePlanner,
+                                      CycleRecord, EngineView, JobView,
+                                      PlanJournal, ResumePlan, SessionView)
 from repro_torch.core.scheduler import SchedulerConfig, TPOTScheduler
 from repro_torch.core.slots import SlotManager
 from repro_torch.models import (forward_decode, forward_decode_fused,
                                 forward_decode_megastep, forward_prefill,
-                                forward_resume_batch)
+                                forward_resume_batch, forward_spec_step)
 from repro_torch.serving.faults import SessionFault
 from repro_torch.serving.kvcache import KVExhausted, make_pool
 from repro_torch.serving.metrics import (ServingReport, SLOThresholds,
@@ -98,8 +101,11 @@ class EngineConfig:
     # --- device-resident hot path --------------------------------------
     megastep_max: int = 8            # K cap for fused decode megasteps
     megastep_unit: int = 2           # megastep grid granularity (≥2)
-    spec_k: int = 0                  # speculative decode: not ported yet
-    #                                  (values >= 2 are rejected)
+    # --- speculative decode ---------------------------------------------
+    spec_k: int = 0                  # draft-and-verify width cap: one
+    #                                  verify forward scores up to K
+    #                                  tokens per lane (0 = off)
+    spec_ngram: int = 3              # prompt-lookup match length
     overlap_dispatch: Optional[bool] = None  # double-buffer plain decode
     #                                  windows: dispatch the next step
     #                                  before waiting on the previous
@@ -151,6 +157,7 @@ class HotPathExecutables:
     fused: Callable        # device-resident decode step
     resume: Callable       # batched resume prefill
     megastep: Callable[[int], Callable]   # K -> K fused decode steps
+    spec: Callable[[int, int], Callable]  # (K, ngram) -> draft-and-verify
 
 
 def get_executables(mcfg: ModelConfig, moe_mode: str) -> HotPathExecutables:
@@ -189,9 +196,17 @@ def get_executables(mcfg: ModelConfig, moe_mode: str) -> HotPathExecutables:
                                     block_tables=bt[0] if bt else None,
                                     moe_mode=moe_mode)
 
+    def spec(num_draft: int, ngram: int) -> Callable:
+        def spec_step(params, cache, history, tokens, lengths, active, *bt):
+            return forward_spec_step(
+                params, mcfg, history, tokens, cache, lengths, active,
+                num_draft=num_draft, ngram=ngram,
+                block_tables=bt[0] if bt else None, moe_mode=moe_mode)
+        return spec_step
+
     return HotPathExecutables(decode=decode_step, prefill=prefill_step,
                               fused=fused_step, resume=resume_step,
-                              megastep=megastep)
+                              megastep=megastep, spec=spec)
 
 
 def resolve_device(device) -> torch.device:
@@ -209,7 +224,11 @@ def _plan_kind(plan: CyclePlan) -> str:
     touches, joined (a fused cycle reads e.g. "mega+resume")."""
     parts = []
     if plan.decode is not None:
-        parts.append("mega" if plan.decode.megastep_target > 0 else "decode")
+        if plan.decode.spec_k > 0:
+            parts.append("spec")
+        else:
+            parts.append("mega" if plan.decode.megastep_target > 0
+                         else "decode")
     if plan.resume is not None:
         parts.append("resume")
     if plan.prefill:
@@ -224,8 +243,8 @@ def _planned_tokens(plan: CyclePlan) -> int:
     counters in the cycle span)."""
     total = 0
     if plan.decode is not None:
-        total += max(1, plan.decode.megastep_target) * \
-            len(plan.decode.session_ids)
+        total += max(1, plan.decode.megastep_target,
+                     plan.decode.spec_k) * len(plan.decode.session_ids)
     if plan.resume is not None:
         total += plan.resume.bucket * len(plan.resume.session_ids)
     for op in plan.prefill:
@@ -279,7 +298,8 @@ class Dispatcher:
                       if sid in eng._sessions
                       and eng._sessions[sid].state == SessionState.DECODING]
             if active:
-                eng._decode_dispatch(active, plan.decode.megastep_target)
+                eng._decode_dispatch(active, plan.decode.megastep_target,
+                                     plan.decode.spec_k)
                 out.did_work = True
         elif plan.flush_idle:
             eng._flush_decode()
@@ -317,9 +337,6 @@ class ServingEngine:
         self.policy: PolicySpec = self.planner.spec
         policy = self.policy
         self.ecfg = engine_cfg or EngineConfig()
-        if self.ecfg.spec_k >= 2:
-            raise NotImplementedError(
-                "speculative decode (spec_k >= 2) is not ported yet")
         self._paged = model_cfg.kv_layout == "paged"
         self.pool = make_pool(model_cfg, self.ecfg.num_slots,
                               self.ecfg.max_seq, dtype, self.device,
@@ -366,6 +383,25 @@ class ServingEngine:
             self.megasteps = SlotManager(
                 total, self.ecfg.megastep_unit, self._build_megastep,
                 preestablish=policy.preestablish)
+        # speculative draft-and-verify grid: one verify width per level,
+        # the same shape-stable discipline as the megastep grid
+        B = self.ecfg.num_slots
+        self._spec_on = self.ecfg.spec_k >= 2
+        # per-slot token history (position p holds the token *input* at
+        # p: prompt tokens, then each emitted token as it becomes the
+        # next input), host mirror + device tensor; the per-session
+        # acceptance EMA; parked sessions' history rows
+        self._history = np.zeros((B, self.ecfg.max_seq), np.int32)
+        self._dev_history = torch.zeros((B, self.ecfg.max_seq),
+                                        dtype=torch.int32, device=self.device)
+        self._hist_dirty = True
+        self._parked_hist: Dict[int, np.ndarray] = {}
+        self._spec_ema: Dict[int, float] = {}
+        self.specsteps: Optional[SlotManager] = None
+        if self._spec_on:
+            self.specsteps = SlotManager(
+                self.ecfg.spec_k // 2 * 2, 2, self._build_specstep,
+                preestablish=policy.preestablish)
         self._warm_shared()
 
         # run-state
@@ -386,7 +422,6 @@ class ServingEngine:
         self.event_log: List[TokenEvent] = []  # run(), record_events only
         # device-resident decode state (rebuilt from host mirrors only on
         # membership changes)
-        B = self.ecfg.num_slots
         self._dev_tokens = torch.zeros((B,), dtype=torch.int32,
                                        device=self.device)
         self._dev_lengths = torch.zeros((B,), dtype=torch.int32,
@@ -402,6 +437,16 @@ class ServingEngine:
         # per-dispatch (host token copy, ready event) within the window,
         # so the flush can emit true per-token TokenEvents
         self._window_toks: List[Tuple[torch.Tensor, object]] = []
+        # windows are mode-pure ("plain" fused/megastep or "spec"
+        # draft-and-verify): a mode switch flushes first.  Spec dispatches
+        # append ((toks [K, B], acc [B]) on the host, ready event, K); the
+        # host mirrors advance only at the flush, when the accept counts
+        # are known, so ``_window_pending`` is the pessimistic in-flight
+        # token count per lane
+        self._window_mode = "plain"
+        self._window_spec: List[Tuple[Tuple[torch.Tensor, torch.Tensor],
+                                      object, int]] = []
+        self._window_pending = 0
         # double-buffered dispatch: at window overflow the completed
         # window is detached here, the next step is dispatched, and only
         # then does the host wait on the detached window's tokens
@@ -417,6 +462,7 @@ class ServingEngine:
             reg,
             {"fused_steps": 0, "megasteps": 0,
              "mega_tokens": 0,
+             "spec_steps": 0, "spec_proposed": 0, "spec_accepted": 0,
              "resume_batches": 0,
              "resume_jobs": 0, "capacity_overruns": 0,
              "cold_batches": 0, "cold_jobs": 0,
@@ -447,8 +493,15 @@ class ServingEngine:
         self._h_tpmc = reg.histogram(
             "tokens_per_model_call",
             help="decode tokens emitted per model forward pass "
-                 "(1 = plain decode)",
+                 "(1 = plain decode; >1 = accepted speculative drafts)",
             buckets=(1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0))
+        reg.gauge("spec_acceptance_rate",
+                  help="accepted / proposed speculative draft tokens "
+                       "(lifetime ratio; 0 when speculation is off)",
+                  fn=lambda: (
+                      float(self.hotpath_stats["spec_accepted"])
+                      / max(1.0,
+                            float(self.hotpath_stats["spec_proposed"]))))
         reg.gauge("q_decode", help="decode-queue depth",
                   fn=lambda: float(self.queues.occupancy()[0]))
         reg.gauge("q_prefill", help="prefill-queue depth",
@@ -525,15 +578,16 @@ class ServingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _to_host(self, t: torch.Tensor) -> Tuple[torch.Tensor, object]:
-        """Start an asynchronous copy of ``t`` to host memory; returns the
-        host tensor and the event that marks it ready (None on the CPU)."""
+    def _to_host(self, *ts: torch.Tensor) -> Tuple[object, object]:
+        """Start asynchronous copies of ``ts`` to host memory; returns the
+        host tensor (a tuple of them for several) and the event that
+        marks them ready (None on the CPU)."""
         if self.device.type != "cuda":
-            return t, None
-        host = t.to("cpu", non_blocking=True)
+            return (ts[0] if len(ts) == 1 else ts), None
+        host = tuple(t.to("cpu", non_blocking=True) for t in ts)
         ev = torch.cuda.Event()
         ev.record()
-        return host, ev
+        return (host[0] if len(host) == 1 else host), ev
 
     # ------------------------------------------------------------------
     # executables & warmup
@@ -548,12 +602,15 @@ class ServingEngine:
             return ()
         return (self.pool.block_tables_device(),)
 
-    def _prepare_append(self, slot: int, n: int) -> None:
+    def _prepare_append(self, slot: int, n: int,
+                        start: Optional[int] = None) -> None:
         """Paged pre-dispatch hook: grow or copy-on-write ``slot``'s block
-        table to cover ``n`` tokens from its current length.  No-op under
-        the slab layout."""
+        table to cover ``n`` tokens from ``start`` (default: the slot's
+        current length; speculative dispatches pass the pessimistic
+        in-flight frontier).  No-op under the slab layout."""
         if self._paged:
-            self.pool.prepare_append(slot, int(self.pool.lengths[slot]), n)
+            base = int(self.pool.lengths[slot]) if start is None else start
+            self.pool.prepare_append(slot, base, n)
 
     def _build_slot(self, level: int):
         """Slot executable for decode-reservation ``level``: the prefill
@@ -603,6 +660,22 @@ class ServingEngine:
            *self._bt())
         self._sync()
         return {"steps": level, "fn": fn}
+
+    def _build_specstep(self, level: int):
+        """Draft-and-verify step scoring ``level`` positions per lane.  The
+        warm call runs with every lane inactive on a scratch history: its
+        K/V writes land in the scratch rows or page and no recurrent
+        state changes (safe at any time)."""
+        fn = self._ex.spec(level, self.ecfg.spec_ngram)
+        B = self.ecfg.num_slots
+        z = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        fn(self.params, self.pool.cache,
+           torch.zeros((B, self.ecfg.max_seq), dtype=torch.int32,
+                       device=self.device), z, z,
+           torch.zeros((B,), dtype=torch.bool, device=self.device),
+           *self._bt())
+        self._sync()
+        return {"draft": level, "fn": fn}
 
     def _warm_prefill(self, fn, chunk: int) -> None:
         toks = torch.zeros((1, chunk), dtype=torch.int32, device=self.device)
@@ -672,6 +745,8 @@ class ServingEngine:
         if pad:
             toks = np.concatenate([toks, np.zeros(pad, np.int32)])
         fn = fn or self._prefill_fn
+        self._write_history(sess.slot, int(self.pool.lengths[sess.slot]),
+                            toks[:take])
         self._prepare_append(sess.slot, take)
         logits, self.pool.cache = fn(
             self.params, self.pool.cache,
@@ -754,12 +829,42 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # decode stream (device-resident)
     # ------------------------------------------------------------------
+    def _park_history(self, s: Session) -> None:
+        """Save a parked session's history row (the proposer's state)."""
+        if self._spec_on and s.slot >= 0:
+            self._parked_hist[s.session_id] = self._history[s.slot].copy()
+
+    def _restore_history(self, s: Session) -> None:
+        """Restore a parked session's history row into its fresh slot."""
+        if self._spec_on:
+            row = self._parked_hist.pop(s.session_id, None)
+            self._history[s.slot, :] = 0 if row is None else row
+            self._hist_dirty = True
+
+    def _write_history(self, slot: int, start: int, toks) -> None:
+        """Host mirror of the proposer history: ``toks`` are the inputs at
+        positions ``start..`` of ``slot`` (cut at the row's end: a
+        capacity overrun has no history past it)."""
+        if self._spec_on:
+            n = max(0, min(len(toks), self.ecfg.max_seq - start))
+            self._history[slot, start:start + n] = np.asarray(toks[:n])
+            self._hist_dirty = True
+
+    def _upload_history(self) -> None:
+        """Replace the device history with the host mirror when dirty."""
+        if self._spec_on and self._hist_dirty:
+            self._dev_history = self._h2d(self._history)
+            self._hist_dirty = False
+
     def _sync_device_state(self, active: Sequence[Session]) -> None:
         """Rebuild the device token/length/mask arrays from host mirrors.
         Only happens when decode membership changed — every such event
-        passes through a flush, so the host mirrors are exact here."""
+        passes through a flush, so the host mirrors are exact here.  The
+        history mirror re-uploads whenever a host-side write dirtied it
+        (prefill chunks, plain windows, restores), membership or not."""
         ids = [s.session_id for s in active]
         if not self._dev_dirty and ids == self._dev_ids:
+            self._upload_history()
             return
         if self._window_steps:
             self._flush_decode()
@@ -772,6 +877,7 @@ class ServingEngine:
         self._dev_tokens = self._h2d(tokens)
         self._dev_mask = self._h2d(mask)
         self._dev_lengths = self._h2d(self.pool.lengths)
+        self._upload_history()
         self._dev_ids = ids
         self._dev_dirty = False
 
@@ -782,16 +888,21 @@ class ServingEngine:
         self._h_gap.observe(max(gap, 0.0))
 
     def _decode_dispatch(self, active: Sequence[Session],
-                         megastep_target: int) -> None:
-        """Dispatch one fused decode step — a K-step megastep when the
-        plan asked for one — without waiting on the result.  The
-        planner's target is clamped to the live burst/capacity bounds
-        (correctness clamps, not decisions)."""
+                         megastep_target: int, spec_target: int = 0) -> None:
+        """Dispatch one fused decode step — a K-step megastep, or a
+        draft-and-verify step when the plan asked for one — without
+        waiting on the result.  The planner's targets are clamped to the
+        live burst/capacity bounds (correctness clamps, not decisions)."""
         ecfg = self.ecfg
         if (self._window_sessions
                 and [s.session_id for s in self._window_sessions]
                 != [s.session_id for s in active]):
             self._flush_decode()         # defensive: membership changed
+        if spec_target > 0 and self.specsteps is not None:
+            if self._spec_dispatch(active, spec_target):
+                return
+        if self._window_mode == "spec" and self._window_steps:
+            self._flush_decode()         # mode switch: the spec window closes
         k_alive = min(s.current_turn.decode_len - s.decoded for s in active)
         k_cap = (ecfg.max_seq - 1
                  - max(int(self.pool.lengths[s.slot]) for s in active))
@@ -867,8 +978,73 @@ class ServingEngine:
         if burst_done:
             self._flush_decode()
 
+    def _spec_dispatch(self, active: Sequence[Session],
+                       spec_target: int) -> bool:
+        """Dispatch one draft-and-verify step: the device drafts K - 1
+        tokens per lane by prompt lookup, one verify forward scores them,
+        and the accepted prefix commits.  The host mirrors (``decoded``,
+        pool lengths, history) advance only at the flush, when the accept
+        counts are known; ``_window_pending`` carries the pessimistic
+        in-flight bound.  Returns False when the clamps leave no room for
+        a draft — the caller goes plain."""
+        ecfg = self.ecfg
+        if self._window_mode != "spec" and self._window_steps:
+            self._flush_decode()         # mode switch: plain window closes
+        pend = self._window_pending
+        k_alive = min(s.current_turn.decode_len - s.decoded - pend
+                      for s in active)
+        k_cap = (ecfg.max_seq - 1 - pend
+                 - max(int(self.pool.lengths[s.slot]) for s in active))
+        bound = None
+        if min(k_alive, k_cap) >= 2:
+            bound = self.specsteps.bind_down(
+                min(spec_target, k_alive, k_cap))
+        if bound is None:
+            return False                 # burst tail / capacity: go plain
+        exe, K = bound[0]["fn"], bound[1]
+        if self._window_steps + K > ecfg.telemetry_sample_steps:
+            self._flush_decode()
+        self._sync_device_state(active)
+        try:
+            for s in active:
+                # cover the verify writes beyond the in-flight frontier;
+                # pages of rejected drafts are freed by truncate at flush
+                self._prepare_append(
+                    s.slot, K, start=int(self.pool.lengths[s.slot])
+                    + self._window_pending)
+        except KVExhausted:
+            self._kv_defer_or_abort(s.session_id)
+            return True                  # cycle skipped (deferral counted)
+        for s in active:
+            self._kv_retries.pop(s.session_id, None)
+        if self._window_t0 is None:
+            self._window_t0 = self._clock()
+        t_disp = self._clock()
+        if self._last_dispatch_t is not None:
+            self._observe_gap(t_disp)
+        toks, acc, nt, self._dev_history, self.pool.cache, nl = exe(
+            self.params, self.pool.cache, self._dev_history,
+            self._dev_tokens, self._dev_lengths, self._dev_mask,
+            *self._bt())
+        host, ev = self._to_host(toks, acc)
+        self._window_spec.append((host, ev, K))
+        self._dev_tokens, self._dev_lengths = nt, nl
+        self._last_dispatch_t = self._clock()
+        self._block_since_dispatch = 0.0
+        self.hotpath_stats["spec_steps"] += 1
+        self.hotpath_stats["spec_proposed"] += (K - 1) * len(active)
+        self._cycle_decode_tokens += K * len(active)   # dispatched volume
+        self._window_steps += K          # pessimistic (flush cadence)
+        self._window_pending += K
+        self._window_mode = "spec"
+        self._window_sessions = list(active)
+        if any(s.decoded + self._window_pending
+               >= s.current_turn.decode_len for s in active):
+            self._flush_decode()         # the burst may be complete
+        return True
+
     def _take_window(self) -> Dict:
-        """Detach the live decode window into a record that can be
+        """Detach the live plain decode window into a record that can be
         processed after the next dispatch (the double buffer).  Host
         mirrors already advanced at dispatch, so only the emission
         bookkeeping is deferred."""
@@ -878,11 +1054,20 @@ class ServingEngine:
             sessions=self._window_sessions,
             t0=self._window_t0,
             base={s.session_id: s.decoded - self._window_steps
-                  for s in self._window_sessions})
+                  for s in self._window_sessions},
+            # captured now: the next dispatch advances lengths and a later
+            # flush rewrites last_token, but this window's history rows
+            # anchor at its own pre-window frontier
+            hist_base={s.session_id: int(self.pool.lengths[s.slot])
+                       - self._window_steps
+                       for s in self._window_sessions},
+            prev_tok={s.session_id: s.last_token
+                      for s in self._window_sessions})
         self._window_sessions = []
         self._window_steps = 0
         self._window_toks = []
         self._window_t0 = None
+        self._window_mode = "plain"
         return rec
 
     def _drain_completed(self) -> None:
@@ -933,6 +1118,21 @@ class ServingEngine:
             for i in range(n):
                 self._emit(s, step_toks[i, s.slot], ts[i], index=base + i,
                            turn_end=base + i + 1 >= dlen)
+            if self._spec_on:
+                # plain windows feed the proposer history too: the
+                # window's inputs were the token before it and every
+                # emitted token but the last
+                self._write_history(
+                    s.slot, rec["hist_base"][s.session_id],
+                    [rec["prev_tok"][s.session_id]]
+                    + step_toks[:-1, s.slot].tolist())
+                # acceptance-EMA recovery: a session below SPEC_EMA_FLOOR
+                # would never re-probe (plain windows give no acceptance
+                # signal), so its EMA creeps back up per plain token
+                if s.session_id in self._spec_ema:
+                    self._spec_ema[s.session_id] = min(
+                        1.0, self._spec_ema[s.session_id]
+                        + SPEC_EMA_RECOVERY * n)
         return now
 
     def _flush_decode(self) -> None:
@@ -941,12 +1141,16 @@ class ServingEngine:
         timestamps interpolated across the window.  Prefill-side counters
         accumulated since the last flush fold into ``hotpath_stats`` here.
         Handles the detached double-buffer window first, then the live
-        window."""
+        window: plain (uniform n steps) or speculative (variable accepted
+        counts)."""
         self._drain_completed()
         for k, v in self._prefill_pending.items():
             self.hotpath_stats[k] += v
             self._prefill_pending[k] = 0
         if self._window_steps == 0:
+            return
+        if self._window_mode == "spec":
+            self._flush_spec_window()
             return
         sessions = self._window_sessions
         rec = self._take_window()
@@ -954,6 +1158,79 @@ class ServingEngine:
         self._window_t0 = now
         for s in sessions:
             self._after_token(s, now)
+
+    def _flush_spec_window(self) -> None:
+        """Host sync of a speculative window: read each dispatch's accept
+        counts, advance the host mirrors by the amounts really accepted
+        (the dispatch advanced only the pessimistic bound), free pages
+        prepared for rejected drafts (``pool.truncate``), write the
+        emitted tokens into the proposer history, update the per-session
+        acceptance EMA, and emit the variable-length token streams."""
+        dispatches = self._window_spec
+        sessions = self._window_sessions
+        self._window_spec = []
+        self._window_sessions = []
+        self._window_steps = 0
+        self._window_pending = 0
+        self._window_mode = "plain"
+        t_wait = self._clock()
+        if dispatches[-1][1] is not None:
+            dispatches[-1][1].synchronize()
+        now = self._clock()
+        self._h_devwait.observe(now - t_wait)
+        self._cycle_block_s += now - t_wait
+        self._block_since_dispatch += now - t_wait
+        t0 = self._window_t0
+        self._window_t0 = now
+        tok_h = [t.numpy() for (t, _), _, _ in dispatches]   # each [K, B]
+        acc_h = [a.numpy() for (_, a), _, _ in dispatches]   # each [B]
+        totals = []
+        for s in sessions:
+            emitted: List[int] = []
+            for th, ah, (_, _, K) in zip(tok_h, acc_h, dispatches):
+                a = int(ah[s.slot])
+                emitted.extend(int(x) for x in th[:a, s.slot])
+                if K > 1:
+                    rate = (a - 1) / (K - 1)
+                    prev = self._spec_ema.get(s.session_id, 1.0)
+                    self._spec_ema[s.session_id] = 0.9 * prev + 0.1 * rate
+                self.hotpath_stats["spec_accepted"] += a - 1
+                self._h_tpmc.observe(float(a))
+            total = len(emitted)
+            totals.append(total)
+            if total == 0:
+                continue                 # inactive lane (diverged plan)
+            L0 = int(self.pool.lengths[s.slot])
+            # history: position p holds the token input at p — the window
+            # consumed the token before it plus every emitted token but
+            # the last (that is the next round's input)
+            self._write_history(s.slot, L0, [s.last_token] + emitted[:-1])
+            base = s.decoded
+            dlen = s.current_turn.decode_len
+            s.decoded += total
+            self.pool.lengths[s.slot] = L0 + total
+            s.cached_len = L0 + total
+            # paged rollback: unmap the pages prepared for rejected drafts
+            # beyond the accepted frontier (slab: the length rewind
+            # happened by not advancing past L0 + total)
+            self.pool.truncate(s.slot, L0 + total)
+            s.last_token = emitted[-1]
+            if t0 is not None and now > t0:
+                ts = [t0 + (now - t0) * (i + 1) / total
+                      for i in range(total)]
+                self._h_tpot.observe((now - t0) / total, total)
+            else:
+                ts = [now] * total
+            s.token_times_s.extend(ts)
+            for i, tok in enumerate(emitted):
+                self._emit(s, tok, ts[i], index=base + i,
+                           turn_end=base + i + 1 >= dlen)
+            self._after_token(s, now)
+        if t0 is not None and now > t0 and totals:
+            # controller TPOT: the window's per-token pace at the mean
+            # accepted depth across lanes
+            mean_total = max(1, int(round(sum(totals) / len(totals))))
+            self.scheduler.record_decode_step(now - t0, steps=mean_total)
 
     def _after_token(self, sess: Session, now: float) -> None:
         turn = sess.current_turn
@@ -1005,6 +1282,12 @@ class ServingEngine:
             except KVExhausted:
                 self._kv_defer_or_abort(s.session_id)
                 return  # admission deferred: retries next cycle
+            if self._spec_on:
+                # fresh slot: clear the previous occupant's history row
+                # (stale drafts cannot change tokens, the verify rejects
+                # them, but they would lower the acceptance rate)
+                self._history[s.slot, :] = 0
+                self._hist_dirty = True
             self._slot_bind_span(s.slot, s.session_id, now)
             # always probe, even when the plan's peek saw a miss: the
             # pool's hit/miss accounting and LRU refresh are
@@ -1023,6 +1306,7 @@ class ServingEngine:
                     return
                 self.pool.unpark(s.slot,
                                  self._parked.pop(s.session_id))
+                self._restore_history(s)
                 self.hotpath_stats["unparks"] += 1
                 self._slot_bind_span(s.slot, s.session_id, now)
             elif s.slot < 0:
@@ -1045,6 +1329,7 @@ class ServingEngine:
             s.cached_len = entry.length
             s.prefill_done = entry.length
             self._h_hitlen.observe(float(entry.length))
+            self._write_history(s.slot, 0, toks[:entry.length])
 
     def _submit(self, s: Session, now: float, adm: Admission) -> None:
         s.arrival_s = now
@@ -1077,6 +1362,7 @@ class ServingEngine:
         if s is None or s.state != SessionState.PREFILLING or s.slot < 0:
             return
         self._parked[sid] = self.pool.park(s.slot)
+        self._park_history(s)
         t = self._clock()
         self._slot_free_span(s.slot, t)
         tr = self.telemetry.tracer
@@ -1104,6 +1390,7 @@ class ServingEngine:
             self._kv_defer_or_abort(s.session_id)
             return
         self.pool.unpark(s.slot, self._parked.pop(sid))
+        self._restore_history(s)
         self._paused_seq.pop(sid, None)
         self._slot_bind_span(s.slot, sid, now)
         tr = self.telemetry.tracer
@@ -1205,6 +1492,8 @@ class ServingEngine:
         np_logits: Optional[np.ndarray] = None
         unfinished: List[Tuple[Job, Session]] = []
         for i, (job, s) in enumerate(jobs):
+            self._write_history(s.slot, int(self.pool.lengths[s.slot]),
+                                toks[i, :takes[i]])
             self.pool.lengths[s.slot] += takes[i]
             s.prefill_done += takes[i]
             s.cached_len = int(self.pool.lengths[s.slot])
@@ -1371,7 +1660,8 @@ class ServingEngine:
                 shared_prefix_len=s.shared_prefix_len, ready_s=s.ready_s,
                 slo=s.slo_class, prefix_hit_len=hit,
                 paused_seq=self._paused_seq.get(s.session_id, -1),
-                deadline_s=s.deadline_s))
+                deadline_s=s.deadline_s,
+                spec_ema=self._spec_ema.get(s.session_id, 1.0)))
         return EngineView(
             now=now, next_ctrl=self._next_ctrl,
             tpot_step_ms=self.scheduler.state.tpot_step_ms,
@@ -1393,6 +1683,8 @@ class ServingEngine:
             cold_levels=tuple(self._cold_levels),
             megastep_levels=(tuple(self.megasteps.levels)
                              if self.megasteps is not None else ()),
+            spec_levels=(tuple(self.specsteps.levels)
+                         if self.specsteps is not None else ()),
             chunk_tok_s=self._chunk_tok_s,
             autotune=self.ecfg.autotune_chunks,
             min_cached_fraction=self.thresholds.min_cached_fraction,
@@ -1474,8 +1766,8 @@ class ServingEngine:
         return events
 
     def tokens_per_model_call(self) -> float:
-        """Mean decode tokens emitted per model forward pass (1.0 for
-        plain decode)."""
+        """Mean decode tokens emitted per model forward pass over the run
+        (1.0 for plain decode): the speculative-decode amortisation."""
         h = self._h_tpmc
         return h.sum / h.total if h.total else 1.0
 
@@ -1513,6 +1805,8 @@ class ServingEngine:
         entry = self._parked.pop(session_id, None)
         if entry is not None:
             self.pool.release_entry(entry)
+        self._parked_hist.pop(session_id, None)
+        self._spec_ema.pop(session_id, None)
         self._paused_seq.pop(session_id, None)
         self._kv_retries.pop(session_id, None)
         self._dev_dirty = True           # decode membership changed

@@ -1109,3 +1109,94 @@ def test_cuda_int8_bf16_prefill_paged_matches_plain(cuda, page, H, Hk, hd):
     assert torch.equal(got, ops.flash_prefill_paged_quant(
         qq, *arenas, qo, ln, bt_m, window=window))
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the speculative decode step: card == CPU
+# ---------------------------------------------------------------------------
+
+def _spec_cfg(family, layout):
+    from repro_torch.configs.base import ModelConfig, SSMConfig
+    kw = dict(name=f"spec-{family}-card", family=family, num_layers=2,
+              d_model=256, num_heads=4, num_kv_heads=2, d_ff=512,
+              vocab_size=512, source="test", kv_layout=layout,
+              kv_page_size=64)
+    if family == "hybrid":
+        kw.update(ssm=SSMConfig(d_state=16, d_conv=4, expand=2,
+                                head_dim=32, chunk_size=32),
+                  hybrid_period=2, hybrid_attn_index=0)
+    return ModelConfig(**kw)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["slab", "paged"])
+@pytest.mark.parametrize("family", ["dense", "hybrid"])
+def test_cuda_forward_spec_step_matches_cpu(cuda, family, layout):
+    """``forward_spec_step`` in f32 on the card (kernel 1 or 4 at Sq = k,
+    kernel 7 on the hybrid) against the same step on the CPU (their
+    plain versions): tokens, accepts, next tokens, lengths and history
+    exact; the cache below the scratch row and page within 1e-4, the
+    Mamba-2 states within 2e-4.  Lane 0's history proposes the model's
+    own greedy continuation, lane 2 is inactive."""
+    import repro_torch.models as tm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _spec_cfg(family, layout)
+    B, S, P, k = 4, 256, 40, 4
+    V = cfg.vocab_size
+    params = tm.init_params(cfg, torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(6)
+    prompt = torch.tensor(rng.integers(0, V, (B, P)), dtype=torch.int32)
+    pmax = S // cfg.kv_page_size
+    bt = (None if layout == "slab" else torch.tensor(
+        rng.permutation(B * pmax).reshape(B, pmax), dtype=torch.int32))
+
+    def prefilled(dev):
+        p = _tree_to(params, dev)
+        kw = {} if bt is None else {"block_tables": bt.to(dev)}
+        cache = tm.init_cache(cfg, B, S, device=dev)
+        logits, cache, _ = tm.forward_prefill(
+            p, cfg, prompt.to(dev), cache,
+            torch.zeros(B, dtype=torch.int32, device=dev), **kw)
+        return p, cache, logits, kw
+
+    p, cache, logits, kw = prefilled("cpu")
+    tokens = logits.argmax(-1).to(torch.int32)
+    lengths = torch.full((B,), P, dtype=torch.int32)
+    active = torch.tensor([True, True, False, True])
+    cont, *_ = tm.forward_decode_megastep(
+        p, cfg, tokens, _tree_to(cache, "cpu"), lengths,
+        torch.ones(B, dtype=torch.bool), num_steps=k, **kw)
+    hist = torch.zeros((B, S), dtype=torch.int32)
+    hist[:, :P] = prompt
+    hist[0, 2:4] = prompt[0, P - 2:]
+    hist[0, 4] = tokens[0]
+    hist[0, 5:4 + k] = cont[:k - 1, 0]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p, cache, _, kw = prefilled(dev)
+        out[dev] = tm.forward_spec_step(
+            p, cfg, hist.to(dev, copy=True), tokens.to(dev), cache,
+            lengths.to(dev), active.to(dev), num_draft=k, **kw)
+    torch.cuda.synchronize()
+    (ct, cacc, cnt, ch, cc, clen), (gt, gacc, gnt, gh, gc, glen) = (
+        out["cpu"], out["cuda"])
+    assert int(cacc[0]) == k and int(cacc[2]) == 0
+    for a, b in ((ct, gt), (cacc, gacc), (cnt, gnt), (clen, glen)):
+        assert torch.equal(a, b.cpu())
+    assert torch.equal(ch[:, :-1], gh.cpu()[:, :-1])
+    for name, layer in cc.items():
+        for leaf, a in layer.items():
+            b = gc[name][leaf].cpu()
+            if leaf in ("k", "v"):
+                # all but the scratch row (slab) or scratch page (paged)
+                a, b = (a[:, :, :-1], b[:, :, :-1]) if bt is None else (
+                    a[:, :-1], b[:, :-1])
+                assert _err(a, b) <= 1e-4, (name, leaf)
+            else:
+                assert _err(a, b) <= 2e-4, (name, leaf)

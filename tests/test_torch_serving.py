@@ -9,6 +9,7 @@ not a fixed reference.  An AST scan keeps JAX and the JAX package out of
 the port and of ``chip_smoke.py``.
 """
 import ast
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -165,9 +166,16 @@ def test_engine_streams_match_port_oracle(params, policy):
 
 
 def test_engine_rejects_unported_options(params):
+    ecfg = dict(num_slots=SLOTS, max_seq=MAX_SEQ, cycle_budget=64,
+                granularity=16, b_max=128, autotune_chunks=False)
+    # speculative decode is ported: spec_k builds its draft-and-verify grid
+    eng = ServingEngine(CFG, params, "agentserve",
+                        EngineConfig(spec_k=4, **ecfg), device="cpu")
+    assert eng.specsteps.levels == [2, 4]
+    # M-RoPE (the VLM family) is not
     with pytest.raises(NotImplementedError):
-        ServingEngine(CFG, params, "agentserve", EngineConfig(spec_k=4),
-                      device="cpu")
+        ServingEngine(dataclasses.replace(CFG, mrope=True), params,
+                      "agentserve", EngineConfig(**ecfg), device="cpu")
 
 
 # ---------------------------------------------------------------------------
