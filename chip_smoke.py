@@ -62,7 +62,10 @@ the verify reads the cache through kernel 1 or 4 at Sq = k):
              finishes, the slab kernels launch and the paged ones do not,
              spec steps > 0; prints the report row, spec steps, proposed
              and accepted drafts, the acceptance rate and tokens per
-             model call.
+             model call.  The same engine then serves three agents with
+             constant prompts (greedy attractors of this model): drafts
+             are accepted (> 0) and rolled back (accepted < proposed),
+             every session finishes, only the slab kernels launch.
 11c. profile_spec — one spec step at K = 4 over the slice's 6 lanes at
              3500 rows (after a direct call shows it launches kernel 1
              once per layer and nothing else), beside the K=8 megastep.
@@ -1420,11 +1423,12 @@ def attractor_tokens(cfg, params, n: int):
     return [int(cands[i]) for i in np.argsort(-runs, kind="stable")[:n]]
 
 
-def repetition_sessions(tokens):
+def repetition_sessions(tokens, first_id: int = 0):
     """One agent per token: a 64-token prompt of that token, a 40-token
-    burst, then a 16-token resume of it and another burst."""
+    burst, then a 16-token resume of it and another burst.  Session ids
+    count from ``first_id``."""
     from repro_torch.serving.request import AgentTurn, Session
-    return [Session(session_id=i, turns=[
+    return [Session(session_id=first_id + i, turns=[
         AgentTurn(np.full(64, t, np.int32), 40, 0.05),
         AgentTurn(np.full(16, t, np.int32), 40, 0.0)])
         for i, t in enumerate(tokens)]
@@ -1770,6 +1774,46 @@ def forward_work(cfg, params, cache, B: int, bt, one, moe_mode: str):
     }
 
 
+def phase_slice_spec_repetition(eng):
+    """slice_spec's engine (bf16, full width and depth, slab) serves
+    three more agents whose constant prompts (``attractor_tokens`` of
+    this model) drive its greedy stream into an attractor: drafts must be
+    accepted (> 0) and rolled back (accepted < proposed), every session
+    must finish with all its tokens, and only the slab kernels run.  The
+    session ids follow the slice's, so no acceptance EMA carries over."""
+    from repro_torch.kernels import ops
+    tag = "slice_spec_repetition"
+    toks = attractor_tokens(eng.mcfg, eng.params, 3)
+    sessions = repetition_sessions(toks, first_id=1000)
+    before = {k: eng.hotpath_stats[k]
+              for k in ("spec_steps", "spec_proposed", "spec_accepted")}
+    h = eng._h_tpmc                  # tokens per model call, engine-wide
+    calls0, sum0 = h.total, h.sum
+    ops.reset_launches()
+    rep = eng.run(sessions)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    for s in sessions:
+        want = sum(t.decode_len for t in s.turns)
+        assert s.output_tokens() == want, (tag, s.session_id,
+                                           s.output_tokens(), want)
+    d = {k: eng.hotpath_stats[k] - v for k, v in before.items()}
+    assert d["spec_steps"] > 0, (tag, "no spec step", d)
+    assert d["spec_accepted"] > 0, (tag, "no draft accepted", toks, d)
+    assert d["spec_accepted"] < d["spec_proposed"], (tag, "no rollback", d)
+    assert set(launches) <= set(SLAB_KERNELS), (tag, launches)
+    assert launches.get("flash_prefill", 0) > 0, (tag, launches)
+    emitted = sum(s.output_tokens() for s in sessions)
+    tpmc = (h.sum - sum0) / (h.total - calls0)
+    log(f"[{tag}] constant prompts of tokens {toks}: "
+        f"{len(sessions)} sessions, {emitted} tokens | {rep.row()} "
+        f"(its last column counts the slice too) | "
+        f"spec_steps={d['spec_steps']} spec_proposed={d['spec_proposed']} "
+        f"spec_accepted={d['spec_accepted']} "
+        f"spec_acceptance_rate={d['spec_accepted'] / d['spec_proposed']:.4f}"
+        f" tokens_per_model_call={tpmc:.4f} | launches={launches}")
+
+
 def phase_profile_spec(eng):
     """One draft-and-verify step at K = 4 over the slice_spec engine's 6
     lanes at 3500 rows, beside the K=8 megastep the plain path runs
@@ -1784,8 +1828,7 @@ def phase_profile_spec(eng):
     lanes = torch.ones(B, dtype=torch.bool, device="cuda")
     spec = lambda: forward_spec_step(params, cfg, hist, _i32([0] * B), cache,
                                      _i32([3500] * B), lanes,
-                                     num_draft=SPEC_K,
-                                     ngram=eng.ecfg.spec_ngram)
+                                     num_draft=SPEC_K)
     ops.reset_launches()
     spec()
     torch.cuda.synchronize()
@@ -1833,7 +1876,7 @@ def phase_forward_testbed():
                            if "resume" not in k})
         log(f"[{tag}] max_memory_allocated_GB="
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
-        del params, cache, logits
+        del params, cache, logits, work
         free_device_memory()
 
 
@@ -2787,6 +2830,7 @@ def main() -> int:
     phase_identity(paged=False, spec_k=SPEC_K)
     phase_identity(paged=True, spec_k=SPEC_K)
     _, eng = phase_slice(paged=False, spec_k=SPEC_K)
+    phase_slice_spec_repetition(eng)
     phase_profile_spec(eng)
     del eng
     free_device_memory()

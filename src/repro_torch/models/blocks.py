@@ -263,14 +263,16 @@ def apply_attn_mixer(p, x, cfg: ModelConfig, *, mode: str, positions,
 
 
 def apply_ssm_mixer(p, x, cfg: ModelConfig, *, mode: str, layer_cache,
-                    slot_idx=None, active=None, valid=None) -> torch.Tensor:
+                    slot_idx=None, active=None, valid=None,
+                    write_state: bool = True) -> torch.Tensor:
     """Mamba-2 mixer over x: [M, S, d].  ``layer_cache``: this layer's
     per-slot state leaves (conv_x, conv_B, conv_C [B, d_conv-1, ch]; ssd
     [B, nh, hd, N]) or None (start from a zero state, write nothing).
     Row m reads and writes slot ``slot_idx[m]`` (default: slot m), on
     both layouts.  ``active`` [M] bool (decode): lanes whose state may
     advance; the others keep theirs.  ``valid`` [M]: real tokens per row
-    of a padded prefill chunk (the state fence)."""
+    of a padded prefill chunk (the state fence).  ``write_state`` False:
+    read the states and write none back."""
     M = x.shape[0]
     rows = None if slot_idx is None else slot_idx.long()
     if layer_cache is None:
@@ -284,7 +286,7 @@ def apply_ssm_mixer(p, x, cfg: ModelConfig, *, mode: str, layer_cache,
         out, new = mamba2.apply_mamba2_step(p, x, state, cfg.ssm)
     else:
         out, new = mamba2.apply_mamba2_scan(p, x, state, cfg.ssm, valid=valid)
-    if layer_cache is not None:
+    if layer_cache is not None and write_state:
         for k, leaf in layer_cache.items():
             n = getattr(new, k).to(leaf.dtype)
             if active is not None:
@@ -301,12 +303,14 @@ def apply_layer(lp, x, cfg: ModelConfig, spec: LayerSpec, *, mode: str,
                 positions, lengths, layer_cache, window: int,
                 write_positions=None, slot_idx=None, block_tables=None,
                 paged_index=None, active=None, ssm_valid=None,
+                write_states: bool = True,
                 moe_mode: str = "gmm") -> torch.Tensor:
     """Pre-norm residual block (attention or Mamba-2 mixer, then the MLP
     or MoE FFN unless the slot has none).  ``slot_idx`` names each row's
     slab cache row for attention, and each row's state slot for Mamba-2
     on both layouts (the paged attention rows go through
-    ``block_tables``).  ``moe_mode``: the MoE FFN's mode (at
+    ``block_tables``).  ``write_states`` False: Mamba-2 layers read their
+    states and write none back.  ``moe_mode``: the MoE FFN's mode (at
     ``moe_output``'s default capacity factor and one data shard); its aux
     loss is not computed on this (serving) path."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
@@ -320,7 +324,8 @@ def apply_layer(lp, x, cfg: ModelConfig, spec: LayerSpec, *, mode: str,
     else:
         x = x + apply_ssm_mixer(lp["ssm"], h, cfg, mode=mode,
                                 layer_cache=layer_cache, slot_idx=slot_idx,
-                                active=active, valid=ssm_valid)
+                                active=active, valid=ssm_valid,
+                                write_state=write_states)
     if spec.ffn == "none":
         return x
     h = rms_norm(x, lp["norm2"], cfg.norm_eps)

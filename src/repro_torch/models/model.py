@@ -263,7 +263,8 @@ def _layer_params(node, g: int):
 def _run_layers(params, x, cfg: ModelConfig, *, mode: str, positions,
                 lengths, cache, window: int, write_positions=None,
                 slot_idx=None, block_tables=None, active=None,
-                ssm_valid=None, moe_mode: str = "gmm"):
+                ssm_valid=None, write_states: bool = True,
+                moe_mode: str = "gmm"):
     G, _, specs = group_layout(cfg)
     groups = params["groups"]
     paged_index = None
@@ -293,7 +294,8 @@ def _run_layers(params, x, cfg: ModelConfig, *, mode: str, positions,
                             write_positions=write_positions,
                             slot_idx=slot_idx, block_tables=block_tables,
                             paged_index=paged_index, active=active,
-                            ssm_valid=ssm_valid, moe_mode=moe_mode)
+                            ssm_valid=ssm_valid, write_states=write_states,
+                            moe_mode=moe_mode)
     return x
 
 
@@ -555,15 +557,15 @@ def _ngram_draft(history, tokens, lengths, *, num_draft: int, ngram: int):
 
 def forward_spec_verify(params, cfg: ModelConfig, x, cache, lengths, active,
                         ssm_valid, *, block_tables=None, moe_mode: str = "gmm",
-                        state_active=None):
+                        write_states: bool = True):
     """Multi-query verify forward: score ``x`` [B, k] at positions
     ``lengths .. lengths + k - 1`` through the prefill attention entries
     (kernel 1 on the slab, kernel 4 paged, at Sq = k), writing the draft
     K/V rows in place as it goes (per-row scatter; inactive lanes write
     at -1, the scratch row or scratch page).  ``ssm_valid`` [B]: the
     Mamba-2 fence (positions at or past it leave the state unchanged);
-    ``state_active`` [B] bool: the lanes whose Mamba-2 states are written
-    back (default ``active``; all False reads the states and writes none).
+    ``write_states`` False: the Mamba-2 states are read and none is
+    written back.
     Returns (logits [B, k, vocab], cache): *all* per-position logits; the
     accept rule consumes only rows below the accepted length."""
     emb = params["embed"][x]
@@ -576,8 +578,8 @@ def forward_spec_verify(params, cfg: ModelConfig, x, cache, lengths, active,
                     lengths=lengths, cache=cache, window=cfg.sliding_window,
                     write_positions=write_positions,
                     block_tables=block_tables,
-                    active=active if state_active is None else state_active,
-                    ssm_valid=ssm_valid, moe_mode=moe_mode)
+                    active=active, ssm_valid=ssm_valid,
+                    write_states=write_states, moe_mode=moe_mode)
     return _logits(params, cfg, h), cache
 
 
@@ -618,7 +620,7 @@ def forward_spec_step(params, cfg: ModelConfig, history, tokens, cache,
     logits, cache = forward_spec_verify(
         params, cfg, x, cache, lengths, active, kfull,
         block_tables=block_tables, moe_mode=moe_mode,
-        state_active=torch.zeros_like(active) if stateful else None)
+        write_states=not stateful)
     g = torch.argmax(logits, dim=-1).to(torch.int32)               # [B, k]
     if k > 1:
         matches = (x[:, 1:] == g[:, :-1]).to(torch.int32)

@@ -105,7 +105,6 @@ class EngineConfig:
     spec_k: int = 0                  # draft-and-verify width cap: one
     #                                  verify forward scores up to K
     #                                  tokens per lane (0 = off)
-    spec_ngram: int = 3              # prompt-lookup match length
     overlap_dispatch: Optional[bool] = None  # double-buffer plain decode
     #                                  windows: dispatch the next step
     #                                  before waiting on the previous
@@ -157,7 +156,7 @@ class HotPathExecutables:
     fused: Callable        # device-resident decode step
     resume: Callable       # batched resume prefill
     megastep: Callable[[int], Callable]   # K -> K fused decode steps
-    spec: Callable[[int, int], Callable]  # (K, ngram) -> draft-and-verify
+    spec: Callable[[int], Callable]       # K -> draft-and-verify
 
 
 def get_executables(mcfg: ModelConfig, moe_mode: str) -> HotPathExecutables:
@@ -196,11 +195,11 @@ def get_executables(mcfg: ModelConfig, moe_mode: str) -> HotPathExecutables:
                                     block_tables=bt[0] if bt else None,
                                     moe_mode=moe_mode)
 
-    def spec(num_draft: int, ngram: int) -> Callable:
+    def spec(num_draft: int) -> Callable:
         def spec_step(params, cache, history, tokens, lengths, active, *bt):
             return forward_spec_step(
                 params, mcfg, history, tokens, cache, lengths, active,
-                num_draft=num_draft, ngram=ngram,
+                num_draft=num_draft,
                 block_tables=bt[0] if bt else None, moe_mode=moe_mode)
         return spec_step
 
@@ -441,12 +440,11 @@ class ServingEngine:
         # draft-and-verify): a mode switch flushes first.  Spec dispatches
         # append ((toks [K, B], acc [B]) on the host, ready event, K); the
         # host mirrors advance only at the flush, when the accept counts
-        # are known, so ``_window_pending`` is the pessimistic in-flight
-        # token count per lane
+        # are known, so a spec window's ``_window_steps`` is also the
+        # pessimistic in-flight token count per lane
         self._window_mode = "plain"
         self._window_spec: List[Tuple[Tuple[torch.Tensor, torch.Tensor],
                                       object, int]] = []
-        self._window_pending = 0
         # double-buffered dispatch: at window overflow the completed
         # window is detached here, the next step is dispatched, and only
         # then does the host wait on the detached window's tokens
@@ -666,7 +664,7 @@ class ServingEngine:
         warm call runs with every lane inactive on a scratch history: its
         K/V writes land in the scratch rows or page and no recurrent
         state changes (safe at any time)."""
-        fn = self._ex.spec(level, self.ecfg.spec_ngram)
+        fn = self._ex.spec(level)
         B = self.ecfg.num_slots
         z = torch.zeros((B,), dtype=torch.int32, device=self.device)
         fn(self.params, self.pool.cache,
@@ -984,13 +982,13 @@ class ServingEngine:
         tokens per lane by prompt lookup, one verify forward scores them,
         and the accepted prefix commits.  The host mirrors (``decoded``,
         pool lengths, history) advance only at the flush, when the accept
-        counts are known; ``_window_pending`` carries the pessimistic
+        counts are known; ``_window_steps`` carries the pessimistic
         in-flight bound.  Returns False when the clamps leave no room for
         a draft — the caller goes plain."""
         ecfg = self.ecfg
         if self._window_mode != "spec" and self._window_steps:
             self._flush_decode()         # mode switch: plain window closes
-        pend = self._window_pending
+        pend = self._window_steps        # 0 unless this window is spec
         k_alive = min(s.current_turn.decode_len - s.decoded - pend
                       for s in active)
         k_cap = (ecfg.max_seq - 1 - pend
@@ -1011,7 +1009,7 @@ class ServingEngine:
                 # pages of rejected drafts are freed by truncate at flush
                 self._prepare_append(
                     s.slot, K, start=int(self.pool.lengths[s.slot])
-                    + self._window_pending)
+                    + self._window_steps)
         except KVExhausted:
             self._kv_defer_or_abort(s.session_id)
             return True                  # cycle skipped (deferral counted)
@@ -1034,11 +1032,10 @@ class ServingEngine:
         self.hotpath_stats["spec_steps"] += 1
         self.hotpath_stats["spec_proposed"] += (K - 1) * len(active)
         self._cycle_decode_tokens += K * len(active)   # dispatched volume
-        self._window_steps += K          # pessimistic (flush cadence)
-        self._window_pending += K
+        self._window_steps += K          # pessimistic in-flight bound
         self._window_mode = "spec"
         self._window_sessions = list(active)
-        if any(s.decoded + self._window_pending
+        if any(s.decoded + self._window_steps
                >= s.current_turn.decode_len for s in active):
             self._flush_decode()         # the burst may be complete
         return True
@@ -1171,7 +1168,6 @@ class ServingEngine:
         self._window_spec = []
         self._window_sessions = []
         self._window_steps = 0
-        self._window_pending = 0
         self._window_mode = "plain"
         t_wait = self._clock()
         if dispatches[-1][1] is not None:

@@ -18,7 +18,11 @@
   oracle on the dense slab and paged layouts, with drafts accepted; on
   the hybrid under the fixed-chunk ``chunked`` policy, spec-on streams
   equal spec-off streams; rollback across copy-on-write pages of a
-  shared prompt (page 16) keeps the streams and the page accounting.
+  shared prompt (page 16) keeps the streams and the page accounting; an
+  engine that served react traffic then serves constant-prompt agents
+  with drafts accepted, streams equal to the oracle.
+* A verify with ``write_states=False`` leaves the Mamba-2 states as they
+  were and scores what a state-writing verify scores.
 * ``repro_torch.launch.serve --spec-k 4 --device cpu`` finishes.
 """
 import dataclasses
@@ -45,7 +49,8 @@ from repro_torch.kernels.decode_attention import paged_gather  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
 from repro_torch.serving.oracle import oracle_streams  # noqa: E402
-from repro_torch.serving.request import SessionState  # noqa: E402
+from repro_torch.serving.request import (AgentTurn, Session,  # noqa: E402
+                                         SessionState)
 from repro_torch.serving.workload import make_workload  # noqa: E402
 
 F32 = dict(rtol=3e-5, atol=3e-5)
@@ -287,6 +292,40 @@ def test_forward_spec_step_matches_jax(model, layout, k):
                                    before[name][leaf][:, 2])
 
 
+def test_forward_spec_verify_without_state_writes():
+    """``write_states=False`` (the hybrid step's first verify) leaves
+    every Mamba-2 state bit for bit as it was and scores the same logits
+    and K/V rows as a verify that writes the states."""
+    jcfg = HYBRID
+    tcfg = port_cfg(jcfg)
+    jp = jm.init_params(jcfg, jax.random.PRNGKey(3))
+    tp = tm.from_jax_params(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    c = StepCase((jcfg, tcfg, jp, tp), "slab", 4, seed=4)
+    x = _ngram_draft(_t(c.history), _t(c.tokens), _t(c.lengths),
+                     num_draft=4, ngram=3)
+    kfull = _t(np.where(c.active, 4, 0).astype(np.int32))
+    copy = lambda: {n: {kk: v.clone() for kk, v in layer.items()}
+                    for n, layer in c.tc.items()}
+    kept, written = copy(), copy()
+    got, kept = tm.forward_spec_verify(tp, tcfg, x, kept, _t(c.lengths),
+                                       _t(c.active), kfull,
+                                       write_states=False)
+    want, written = tm.forward_spec_verify(tp, tcfg, x, written,
+                                           _t(c.lengths), _t(c.active),
+                                           kfull)
+    assert torch.equal(got, want)
+    n_state = 0
+    for name, layer in kept.items():
+        for leaf, v in layer.items():
+            if leaf in tm.POSITIONAL_CACHE_KEYS:
+                assert torch.equal(v, written[name][leaf])
+            else:
+                n_state += 1
+                assert torch.equal(v, c.tc[name][leaf])
+                assert not torch.equal(written[name][leaf], c.tc[name][leaf])
+    assert n_state > 0
+
+
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
@@ -346,6 +385,38 @@ def test_engine_spec_streams_match_port_oracle(dense_params, layout):
     assert eng.tokens_per_model_call() > 1.0
     assert eng.stats()["spec_acceptance_rate"] == pytest.approx(
         hs["spec_accepted"] / hs["spec_proposed"])
+    assert eng.pool.free_slots == SLOTS
+
+
+@pytest.mark.parametrize("layout", ["slab", "paged"])
+def test_engine_spec_second_run_accepts_repetition(dense_params, layout):
+    """An engine that has served react traffic serves a second cohort
+    whose constant prompts drive the greedy stream into an attractor
+    (ids after the first cohort's, so no acceptance EMA carries over):
+    streams equal the oracle, drafts are accepted and rolled back."""
+    cfg = dataclasses.replace(DENSE, kv_layout=layout, kv_page_size=64)
+    eng, _, _ = _run(cfg, dense_params, spec_k=4)
+    before = dict(eng.hotpath_stats)
+
+    def cohort():
+        return [Session(session_id=1000 + i, turns=[
+            AgentTurn(np.full(64, t, np.int32), 40, 0.05),
+            AgentTurn(np.full(16, t, np.int32), 40, 0.0)])
+            for i, t in enumerate((3, 50, 97))]
+    sessions = cohort()
+    eng.run(sessions)
+    streams = {}
+    for ev in eng.event_log:
+        assert not ev.error
+        streams.setdefault(ev.session_id, []).append(ev.token)
+    assert all(s.output_tokens() == 80 for s in sessions)
+    assert streams == oracle_streams(DENSE, dense_params, cohort(),
+                                     num_slots=SLOTS, max_seq=MAX_SEQ,
+                                     device="cpu")
+    d = {k: eng.hotpath_stats[k] - before[k]
+         for k in ("spec_steps", "spec_proposed", "spec_accepted")}
+    assert d["spec_steps"] > 0
+    assert 0 < d["spec_accepted"] < d["spec_proposed"]
     assert eng.pool.free_slots == SLOTS
 
 
